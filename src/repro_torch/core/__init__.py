@@ -1,0 +1,21 @@
+"""Ditto core on PyTorch: the client-centric caching framework and the
+distributed adaptive caching (paper §4), as functions on tensors.
+
+The execution surface is :func:`repro_torch.core.execute`, as in the
+JAX package's ``repro.core``.
+"""
+
+from repro_torch.core.cache import (AccessResult, TraceResult, access,
+                                    access_group, make_cache)
+from repro_torch.core.execute import Cache, ExecResult, make
+from repro_torch.core.execute import execute as execute  # noqa: PLC0414
+from repro_torch.core.types import (CacheConfig, CacheState, ClientState,
+                                    ExecConfig, OpStats, hit_ratio,
+                                    init_cache, init_clients, init_stats)
+
+__all__ = [
+    "AccessResult", "TraceResult", "access", "access_group", "make_cache",
+    "Cache", "ExecResult", "execute", "make",
+    "CacheConfig", "CacheState", "ClientState", "ExecConfig", "OpStats",
+    "hit_ratio", "init_cache", "init_clients", "init_stats",
+]

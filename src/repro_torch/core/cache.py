@@ -1,0 +1,749 @@
+"""The Ditto cache step: the client-centric caching framework plus
+distributed adaptive caching, as one batched function on tensors.
+
+A torch port of ``repro/core/cache.py``.  One step applies a [G, C]
+group of client operations (G rounds x C lanes) against the step-entry
+snapshot of the table: bucket probe, hit-metadata update with the
+frequency-counter (FC) cache flush, regret collection and the expert
+weights, read-through inserts, the sampled ranked eviction, then the
+apply and the ``OpStats`` metering.  Round r runs at logical time
+``clock + r``.  ``backend="fused"`` routes the probe, the metadata
+update and the eviction decision through ``kernels/ops.py`` (the CUDA
+kernels on the card); ``backend="reference"`` computes them in plain
+torch.  Both make the same decisions.
+
+Port notes:
+
+* u32 columns are int64 (``core/types.py``); wrapping adds are masked.
+* The step issues no host sync and no upload: no ``.item()``, no
+  boolean-mask indexing, no Python branch on a tensor value, no tensor
+  made from host data.  Scatters whose JAX form drops an out-of-range
+  index write into one padding element instead.  That lets the trace
+  drivers replay a step as a CUDA graph on the card (``_scan``).
+* Duplicate-index writes resolve explicitly: SET payloads and sizes are
+  last-writer-wins (highest request position per slot, by
+  ``scatter_reduce(amax)``); every other scatter target is unique, or
+  its duplicates write equal values.
+* Float sums whose order matters (per-lane penalties, the synced
+  penalty total) are taken as sequential scans (``cumsum``), in request
+  and lane order, as XLA's CPU scatter and reduce visit them; no float
+  atomics, so the step is deterministic on the card.
+* ``n_tenants > 1``, ``l0_entries > 0``, ``sanitize=True`` and the DM
+  layer's ``shadow`` ops raise ``NotImplementedError``: they are later
+  items of the port's roadmap.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core import priority as prio
+from repro_torch.core.fc_cache import fc_access, fc_access_group
+from repro_torch.core.hashing import bucket_of, hash_key
+from repro_torch.core.types import (SIZE_EMPTY, SIZE_HISTORY, CacheConfig,
+                                    CacheState, ClientState, MDView, OpStats,
+                                    init_cache, init_clients, init_stats,
+                                    stats_add)
+from repro_torch.core.u32 import M32
+from repro_torch.kernels import ops as kops
+
+I64 = torch.int64
+F32 = torch.float32
+_INF = float("inf")
+
+
+class AccessResult(NamedTuple):
+    hit: torch.Tensor       # bool[G, C]
+    value: torch.Tensor     # u32[G, C, W] (garbage where miss)
+    evicted: torch.Tensor   # bool[G, C]
+    regret: torch.Tensor    # bool[G, C]
+
+
+def _unsupported(cfg: CacheConfig, shadow) -> None:
+    if cfg.n_tenants > 1:
+        raise NotImplementedError(
+            "n_tenants > 1 (tenant quotas, budget gate, tenant-filtered "
+            "sampling) is ROADMAP Queue 1 item 10, slice D, not yet ported")
+    if cfg.l0_entries > 0:
+        raise NotImplementedError(
+            "l0_entries > 0 (the L0 near-cache) is ROADMAP Queue 1 item 11, "
+            "slice E, not yet ported")
+    if cfg.sanitize:
+        raise NotImplementedError(
+            "sanitize=True (the invariant sanitizer) is ROADMAP Queue 1 "
+            "item 12, not yet ported")
+    if shadow is not None:
+        raise NotImplementedError(
+            "shadow (replica mirror) ops belong to the DM layer, ROADMAP "
+            "Queue 1 item 13, not yet ported")
+
+
+def _md_view(state: CacheState, idx: torch.Tensor,
+             ts: torch.Tensor | None = None) -> MDView:
+    size = state.size[idx].to(F32)
+    clock = state.clock if ts is None else ts
+    return MDView(
+        size=size,
+        insert_ts=state.insert_ts[idx].to(F32),
+        last_ts=state.last_ts[idx].to(F32),
+        freq=state.freq[idx].to(F32),
+        ext=state.ext[idx],
+        clock=clock.to(F32),
+        gds_L=state.gds_L,
+        cost=torch.ones_like(size),
+    )
+
+
+def _is_live(size: torch.Tensor) -> torch.Tensor:
+    return (size != SIZE_EMPTY) & (size != SIZE_HISTORY)
+
+
+def _hist_age(hist_ctr: torch.Tensor, hist_id: torch.Tensor) -> torch.Tensor:
+    """Logical-FIFO age with wrap-around."""
+    return (hist_ctr - hist_id) & M32
+
+
+def _argmax(mask: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """First index of the max along ``dim`` of a boolean mask (0 if none)."""
+    return mask.to(torch.int32).argmax(dim=dim)
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] for x [B, N]."""
+    return torch.gather(x, 1, idx[:, None])[:, 0]
+
+
+def _take_expert(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """x[b, :, e[b]] for x [B, N, E]; NaN where e[b] >= E, as the JAX
+    package's ``take_along_axis`` fills an out-of-range gather."""
+    B, N, E = x.shape
+    got = torch.gather(x, 2, torch.clamp(e, max=E - 1)[:, None, None]
+                       .expand(B, N, 1))[:, :, 0]
+    return torch.where((e < E)[:, None], got, float("nan"))
+
+
+def _repeat(x: torch.Tensor, n: int) -> torch.Tensor:
+    """jnp.repeat(x, n, axis=0): each leading entry n times in a row."""
+    return x.unsqueeze(1).expand(x.shape[0], n, *x.shape[1:]).reshape(
+        x.shape[0] * n, *x.shape[1:])
+
+
+def _seqsum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 in index order (a sequential scan on CPU and CUDA)."""
+    return torch.cumsum(x, dim=0)[-1]
+
+
+def _padded(col: torch.Tensor) -> torch.Tensor:
+    """A copy of ``col`` with one trailing element that absorbs writes to
+    the out-of-range index ``len(col)``."""
+    return torch.cat([col, col.new_zeros((1,) + tuple(col.shape[1:]))])
+
+
+def _set(col: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """``col.at[idx].set(src, mode="drop")`` for indices in [0, n] whose
+    in-range entries are unique (or write equal values).  A Python
+    scalar ``src`` is filled in place, with no upload to the device."""
+    out = _padded(col)
+    if torch.is_tensor(src):
+        out[idx] = src
+    else:
+        out.index_fill_(0, idx, src)
+    return out[:col.shape[0]]
+
+
+def _lww_set(col: torch.Tensor, idx: torch.Tensor,
+             src: torch.Tensor) -> torch.Tensor:
+    """``_set`` with duplicate indices resolved last-writer-wins: only the
+    highest request position per slot writes."""
+    n = col.shape[0]
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((n + 1,), -1, dtype=I64, device=idx.device)
+    last = last.scatter_reduce(0, idx, pos, "amax")
+    return _set(col, torch.where(last[idx] == pos, idx, n), src)
+
+
+def _choose_expert(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Sample an expert index ~ normalized weights."""
+    p = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-30)
+    cdf = torch.cumsum(p, dim=-1)
+    return (cdf < u[..., None]).sum(dim=-1)
+
+
+def apply_penalties(weights: torch.Tensor, penalties: torch.Tensor,
+                    lam) -> torch.Tensor:
+    """Multiplicative-weights regret update, clamp-THEN-normalize."""
+    w = weights * torch.exp(-lam * penalties)
+    w = torch.clamp(w, min=1e-4)
+    return w / w.sum(dim=-1, keepdim=True)
+
+
+def _first_winner(x: torch.Tensor, valid: torch.Tensor,
+                  domain: int) -> torch.Tensor:
+    """bool[B]: True for the first occurrence of each distinct value of x
+    in [0, domain) among valid lanes (the earliest request wins)."""
+    B = x.shape[0]
+    pos = torch.arange(B, device=x.device)
+    tgt = torch.where(valid, x, domain)
+    best = torch.full((domain + 1,), B, dtype=I64, device=x.device)
+    best = best.scatter_reduce(0, tgt, pos, "amin")
+    return valid & (best[torch.where(valid, x, 0)] == pos)
+
+
+def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
+                 stats: OpStats, keys: torch.Tensor, *,
+                 is_write: torch.Tensor | None = None,
+                 obj_size: torch.Tensor | None = None,
+                 values: torch.Tensor | None = None,
+                 tenant: torch.Tensor | None = None,
+                 insert_on_miss: bool = True,
+                 shadow: torch.Tensor | None = None,
+                 ) -> Tuple[CacheState, ClientState, OpStats, AccessResult]:
+    """One batched cache step over a [G, C] request group.
+
+    Args:
+      keys: u32[G, C]; 0 marks a padded no-op lane.
+      is_write: bool[G, C] — SET ops.
+      obj_size: u32[G, C] object size in 64B blocks (default 1).
+      values: u32[G, C, W] payload written on insert/set.
+      tenant: u32[G, C] tenant ids (single-tenant: ignored).
+    """
+    _unsupported(cfg, shadow)
+    G, C = keys.shape
+    B = G * C
+    E = cfg.n_experts
+    K = cfg.n_samples
+    A = cfg.assoc
+    names = cfg.experts
+    adaptive = E > 1
+    fused = cfg.backend == "fused"
+    if fused:
+        unsupported = [n for n in names if n not in kops.KERNEL_EXPERTS]
+        if unsupported:
+            raise ValueError(
+                f"backend='fused' supports experts {kops.KERNEL_EXPERTS}; "
+                f"got {unsupported} (use backend='reference')")
+    dev = keys.device
+    n_slots = cfg.n_slots
+
+    if is_write is None:
+        is_write = torch.zeros((G, C), dtype=torch.bool, device=dev)
+    if obj_size is None:
+        obj_size = torch.ones((G, C), dtype=I64, device=dev)
+    if values is None:
+        values = torch.zeros((G, C, cfg.value_words), dtype=I64, device=dev)
+
+    keys_b = keys.reshape(B).to(I64)
+    op = keys_b != 0
+    is_write = is_write.reshape(B)
+    obj_size = torch.clamp(obj_size.reshape(B).to(I64), 1, SIZE_HISTORY - 1)
+    values = values.reshape(B, cfg.value_words).to(I64)
+
+    clock = state.clock
+    ts_round = (clock + torch.arange(G, device=dev)) & M32        # [G]
+    ts_req = ts_round[:, None].expand(G, C).contiguous().reshape(B)  # [B]
+    rng_b = clients.rng.repeat(G, 1)                               # [B, 2]
+    step_rng = prng.fold_in(rng_b, ts_req)
+    lane_b = torch.arange(C, device=dev).repeat(G)                 # [B]
+
+    # 1. Bucket probe (+ the embedded-history match).
+    kh = hash_key(keys_b)
+    bucket = bucket_of(kh, cfg.n_buckets)
+    bslots = bucket[:, None] * A + torch.arange(A, device=dev)[None, :]
+    b_key = state.key[bslots]
+    b_size = state.size[bslots]
+    b_hash = state.key_hash[bslots]
+    b_ptr = state.ptr[bslots]
+
+    live = _is_live(b_size)
+    is_hist = b_size == SIZE_HISTORY
+    h_age = _hist_age(state.hist_ctr, b_ptr)
+    h_valid = is_hist & (h_age < cfg.history_len)
+
+    if fused:
+        found, slot, hist_found, hslot = kops.access_probe_op(
+            state.key, state.size, state.key_hash, state.ptr, keys_b,
+            state.hist_ctr, assoc=A, history_len=cfg.history_len)
+        found = found & op
+        hist_found = hist_found & op
+        slot = torch.where(found, slot, -1)
+    else:
+        match = live & (b_key == keys_b[:, None]) & op[:, None]
+        found = match.any(dim=1)
+        slot = torch.where(found, _pick(bslots, _argmax(match)), -1)
+        h_match = h_valid & (b_hash == kh[:, None]) & op[:, None]
+        hist_found = h_match.any(dim=1) & ~found
+        hslot = _pick(bslots, _argmax(h_match))
+    regret = hist_found & (adaptive and cfg.use_lwh)
+
+    hit = found
+    miss = op & ~found
+
+    # 2. Hit-metadata update; the FC cache combines freq increments.
+    slot_hit = torch.where(hit, slot, -1)
+    if G == 1:
+        clients, em = fc_access(cfg, clients, slot_hit, clock)
+        emit_slot, emit_delta = em.slot.reshape(-1), em.delta.reshape(-1)
+        n_faa, n_fc_hit = em.n_faa, em.n_hit
+    else:
+        clients, emit_slot, emit_delta, n_faa, n_fc_hit = fc_access_group(
+            cfg, clients, slot_hit.reshape(G, C), ts_round)
+        emit_slot = emit_slot.reshape(-1)
+        emit_delta = emit_delta.reshape(-1)
+
+    upd_idx = torch.where(hit, slot, n_slots)
+    slot0 = torch.clamp(slot, min=0)
+    if fused:
+        freq, last_ts, ext = kops.hit_metadata_update_op(
+            state.freq, state.last_ts, state.ext, slot_hit, ts_req,
+            emit_slot.contiguous(), emit_delta.contiguous())
+    else:
+        eff = state.clock.new_zeros((n_slots + 1,)).scatter_reduce(
+            0, upd_idx, ts_req, "amax")
+        new_ext = prio.update_ext(state.ext[slot0], state.last_ts[slot0],
+                                  state.freq[slot0], eff[slot0])
+        last_ts = _padded(state.last_ts).scatter_reduce(
+            0, upd_idx, ts_req, "amax")[:n_slots]
+        ext = _set(state.ext, upd_idx, new_ext)
+        eidx = torch.where(emit_slot >= 0, emit_slot, n_slots)
+        freq = (_padded(state.freq).index_add(0, eidx, emit_delta)[:n_slots]
+                & M32)
+
+    # 3. Regret collection + lazy expert-weight update (§4.3.2).
+    hslot0 = torch.clamp(hslot, min=0)
+    h_bmap = state.insert_ts[hslot0]                          # expert bitmap
+    h_age_sel = _hist_age(state.hist_ctr, state.ptr[hslot0])
+    h_age_f = h_age_sel.to(F32)
+    pen = torch.pow(torch.full_like(h_age_f, cfg.discount), h_age_f)  # d^t
+    bits = ((h_bmap[:, None] >> torch.arange(E, device=dev)[None, :])
+            & 1).to(F32)
+    pen_e = torch.where(regret[:, None], pen[:, None] * bits, 0.0)  # [B, E]
+    # Per-lane sums over the group's rounds, in round order.
+    pen_lane = _seqsum(pen_e.reshape(G, C, E))[:, None, :]   # [C, 1, E]
+    reg_lane = regret.reshape(G, C).sum(dim=0)[:, None]      # [C, 1]
+
+    # One threefry draw per request: expert choice and sampling offset.
+    u2 = prng.uniform(step_rng, 2)
+    u_exp = u2[:, 0]
+
+    lam = cfg.learning_rate
+    local_w = clients.local_weights[:, None] * torch.exp(-lam * pen_lane)
+    pacc = clients.penalty_acc[:, None] + pen_lane
+    pcnt = clients.penalty_cnt[:, None] + reg_lane
+    if cfg.use_lwu:
+        syncing = pcnt >= cfg.sync_period                    # [C, 1]
+    else:
+        syncing = reg_lane > 0
+    tot_pen = _seqsum(torch.where(syncing[..., None], pacc, 0.0))  # [1, E]
+    gw = apply_penalties(state.weights[None], tot_pen, lam)   # [1, E]
+    local_w = torch.where(syncing[..., None], gw[None], local_w)
+    local_w = torch.clamp(local_w, min=1e-4)
+    pacc = torch.where(syncing[..., None], 0.0, pacc)
+    pcnt = torch.where(syncing, 0, pcnt)
+    n_sync = syncing.sum()
+    e_choice = _choose_expert(local_w[lane_b, 0], u_exp)      # [B]
+
+    # 4. Inserts: read-through on miss, one per bucket per step.
+    want_insert = miss & (is_write | insert_on_miss)
+    winner = _first_winner(bucket, want_insert, cfg.n_buckets)
+    dropped = want_insert & ~winner
+
+    free = (b_size == SIZE_EMPTY) | (is_hist & ~h_valid)     # [B, A]
+    has_free = free.any(dim=1)
+    free_slot = _pick(bslots, _argmax(free))
+
+    b_md = _md_view(state, bslots, ts_req[:, None])
+    b_prio_e = _take_expert(prio.priorities(b_md, names), e_choice)
+    b_prio_e = torch.where(live, b_prio_e, _INF)
+    fb_obj_slot = _pick(bslots, b_prio_e.argmin(dim=1))
+    hist_age_in_bucket = torch.where(h_valid, h_age.to(F32), -_INF)
+    fb_hist_slot = _pick(bslots, hist_age_in_bucket.argmax(dim=1))
+    has_valid_hist = h_valid.any(dim=1)
+    has_live = live.any(dim=1)
+
+    fallback_hist = winner & ~has_free & has_valid_hist
+    fallback_obj = winner & ~has_free & ~has_valid_hist & has_live
+    plain = winner & has_free
+    ins_ok = plain | fallback_hist | fallback_obj
+    ins_slot = torch.where(plain, free_slot,
+                           torch.where(fallback_hist, fb_hist_slot,
+                                       fb_obj_slot))
+    dropped = dropped | (winner & ~ins_ok)
+
+    # 5. Global sampled eviction against the byte budget.
+    consumes = plain | fallback_hist
+    old_sz = state.size[slot0]
+    set_growth = torch.where(hit & is_write, obj_size - old_sz, 0)
+    growing_set = hit & is_write & (set_growth > 0)
+    chargers = consumes | growing_set
+    n_charge = chargers.sum()
+    inc_blocks = torch.where(consumes, obj_size, 0).sum() + set_growth.sum()
+    over = state.bytes_cached + inc_blocks - state.capacity_blocks
+    nc = torch.clamp(n_charge, min=1)
+    quota = torch.where(over <= 0, 0, torch.clamp((over + nc - 1) // nc,
+                                                  min=1))
+    must_evict = chargers & (over > 0)
+
+    W = cfg.sample_window or 4 * K
+    offs = torch.clamp((u2[:, 1] * n_slots).to(I64), max=n_slots - 1)
+    if fused:
+        victims_2d, cand_slot = kops.ranked_eviction_op(
+            state.size, state.insert_ts, state.last_ts, state.freq, offs,
+            e_choice, must_evict, quota, ts_req, window=W, k=K,
+            experts=names)                                    # [B, K], [B, E]
+    else:
+        samp = (offs[:, None]
+                + torch.arange(W, device=dev)[None, :]) % n_slots  # [B, W]
+        s_md = _md_view(state, samp, ts_req[:, None])
+        s_elig = _is_live(state.size[samp])
+        s_live = s_elig & (torch.cumsum(s_elig.to(I64), dim=1) <= K)
+        s_prio = prio.priorities(s_md, names)                 # [B, W, E]
+        s_prio = torch.where(s_live[:, :, None], s_prio, _INF)
+        cand_slot = torch.gather(samp, 1, s_prio.argmin(dim=1))  # [B, E]
+
+        # Peel the chosen expert's ranking until the quota is covered.
+        prio_e = _take_expert(s_prio, e_choice)               # [B, W]
+        s_blocks = torch.where(s_live, s_md.size, 0.0)
+        cols = torch.arange(W, device=dev)[None, :]
+        quota_f = quota.to(F32)
+        vs = []
+        freed = torch.zeros((B,), dtype=F32, device=dev)
+        for _ in range(K):
+            arg = prio_e.argmin(dim=1)
+            ok = (freed < quota_f) & (_pick(prio_e, arg) < _INF) & must_evict
+            vs.append(torch.where(ok, _pick(samp, arg), -1))
+            freed = freed + torch.where(ok, _pick(s_blocks, arg), 0.0)
+            prio_e = torch.where(cols == arg[:, None], _INF, prio_e)
+        victims_2d = torch.stack(vs, dim=1)                   # [B, K]
+    V = victims_2d.shape[1]
+    victims = victims_2d.reshape(-1)                          # [B*V]
+    ev_winner = _first_winner(victims, victims >= 0, n_slots)
+    n_evict = ev_winner.sum()
+    evicting = must_evict & (victims_2d >= 0).any(dim=1)
+
+    # SET payload/size writes, last-writer-wins within the group.
+    set_ok = hit & is_write
+    val_idx = torch.where(set_ok, slot, n_slots)
+    vals = _lww_set(state.values, val_idx, values)
+    sizes_upd = _lww_set(state.size, val_idx, obj_size)
+
+    # Expert bitmap per victim: matching candidates + the chosen expert.
+    cand_rep = _repeat(cand_slot, V)                          # [B*V, E]
+    e_rep = _repeat(e_choice, V)                              # [B*V]
+    bmap = ((cand_rep == victims[:, None]).to(I64)
+            << torch.arange(E, device=dev)[None, :]).sum(dim=1)
+    bmap = bmap | (1 << e_rep)
+
+    # GreedyDual inflation: L <- max(L, evicted victim's H).
+    gds_L = state.gds_L
+    gds_ids = [i for i, n in enumerate(names) if prio.REGISTRY[n].gds_family]
+    if gds_ids:
+        v_md = _md_view(state, torch.clamp(victims, min=0), _repeat(ts_req, V))
+        vp = prio.priorities(v_md, names)[:, gds_ids]
+        vp = torch.where(ev_winner[:, None], vp, -_INF)
+        gds_L = torch.maximum(gds_L, vp.max())
+
+    # History insertion (FAA on the global counter + slot tag + bitmap).
+    write_hist = ev_winner & (adaptive and cfg.use_lwh)
+    hist_rank = torch.cumsum(write_hist.to(I64), dim=0) - 1
+    hist_ids = (state.hist_ctr + hist_rank) & M32
+    n_hist = write_hist.sum()
+
+    # 6. Apply: inserts, then evictions.
+    ii = torch.where(ins_ok, ins_slot, n_slots)
+    key2 = _set(state.key, ii, keys_b)
+    khash2 = _set(state.key_hash, ii, kh)
+    sizes3 = _set(sizes_upd, ii, obj_size)
+    ptr3 = _set(state.ptr, ii, 0)
+    ins_ts3 = _set(state.insert_ts, ii, ts_req)
+    last_ts = _set(last_ts, ii, ts_req)
+    freq = _set(freq, ii, 1)
+    ext = _set(ext, ii, prio.fresh_ext(ts_req, (B,)))
+    vals = _set(vals, ii, values)
+
+    ev_idx = torch.where(ev_winner, victims, n_slots)
+    sizes3 = _set(sizes3, ev_idx, torch.where(write_hist, SIZE_HISTORY,
+                                              SIZE_EMPTY))
+    ptr3 = _set(ptr3, ev_idx, torch.where(write_hist, hist_ids, 0))
+    ins_ts3 = _set(ins_ts3, ev_idx, bmap)
+
+    n_cached = state.n_cached + plain.sum() + fallback_hist.sum() - n_evict
+    bytes_cached = torch.where(_is_live(sizes3), sizes3, 0).sum()
+    result_vals = state.values[slot0]
+
+    new_state = CacheState(
+        key=key2, key_hash=khash2, size=sizes3, ptr=ptr3,
+        insert_ts=ins_ts3, last_ts=last_ts, freq=freq, ext=ext, values=vals,
+        n_cached=n_cached, bytes_cached=bytes_cached,
+        hist_ctr=(state.hist_ctr + n_hist) & M32,
+        clock=(clock + G) & M32, weights=gw[0], gds_L=gds_L,
+        capacity_blocks=state.capacity_blocks,
+        tenant=state.tenant, tenant_bytes=bytes_cached[None],
+        tenant_budget=state.tenant_budget,
+        bucket_ver=state.bucket_ver, l0_epoch=state.l0_epoch)
+    new_clients = clients._replace(local_weights=local_w[:, 0],
+                                   penalty_acc=pacc[:, 0],
+                                   penalty_cnt=pcnt[:, 0])
+
+    # 7. Remote-op accounting (the paper's cost model).
+    n_op = op.sum()
+    n_hit = hit.sum()
+    n_miss = miss.sum()
+    n_set = (op & is_write).sum()
+    n_ins = ins_ok.sum()
+    n_evicting = evicting.sum()
+    n_write_hist = write_hist.sum()
+    sf = cfg.use_sfht
+    no_sep = cfg.use_lwh or not adaptive
+    reads = (n_op + (0 if sf else n_hit) + n_hit
+             + (0 if no_sep else n_miss)
+             + n_evicting * (1 if sf else K))
+    sep_hist = 0 if no_sep else n_evict
+    writes = (n_hit * (1 if sf else 2) + n_ins * 2 + n_write_hist
+              + sep_hist * 2)
+    cas = n_ins + ev_winner.sum()
+    faa = n_faa + n_hist + sep_hist
+    SLOT_B = 32
+    hit_blocks = torch.where(hit, old_sz, 0).sum()
+    miss_blocks = torch.where(miss, obj_size, 0).sum()
+    ins_blocks = torch.where(ins_ok, obj_size, 0).sum()
+    set_blocks = torch.where(hit & is_write, obj_size, 0).sum()
+    read_b = (n_op * A * SLOT_B
+              + (0 if sf else n_hit * SLOT_B)
+              + hit_blocks * 64
+              + (0 if no_sep else n_miss * SLOT_B)
+              + n_evicting * (W if sf else K) * SLOT_B)
+    write_b = (n_hit * (SLOT_B // 2 if sf else SLOT_B)
+               + ins_blocks * 64 + n_ins * SLOT_B
+               + set_blocks * 64
+               + n_write_hist * 16 + sep_hist * SLOT_B)
+    stats = stats_add(
+        stats, rdma_read=reads, rdma_write=writes, rdma_cas=cas,
+        rdma_faa=faa, rpc=n_sync, gets=n_op - n_set, sets=n_set,
+        rdma_read_bytes=read_b, rdma_write_bytes=write_b,
+        hit_bytes=hit_blocks * 64, miss_bytes=miss_blocks * 64,
+        hits=n_hit, misses=n_miss, regrets=regret.sum(),
+        evictions=n_evict, bucket_evictions=fallback_obj.sum(),
+        insert_drops=dropped.sum(), fc_hits=n_fc_hit, fc_flushes=n_faa,
+        weight_syncs=n_sync)
+
+    return new_state, new_clients, stats, AccessResult(
+        hit=hit.reshape(G, C), value=result_vals.reshape(G, C, -1),
+        evicted=evicting.reshape(G, C), regret=regret.reshape(G, C))
+
+
+def access(cfg: CacheConfig, state: CacheState, clients: ClientState,
+           stats: OpStats, keys: torch.Tensor, *,
+           is_write: torch.Tensor | None = None,
+           obj_size: torch.Tensor | None = None,
+           values: torch.Tensor | None = None,
+           tenant: torch.Tensor | None = None,
+           insert_on_miss: bool = True):
+    """One single-round step (G=1) over keys u32[C]."""
+    state, clients, stats, res = access_group(
+        cfg, state, clients, stats, keys[None, :],
+        is_write=None if is_write is None else is_write[None, :],
+        obj_size=None if obj_size is None else obj_size[None, :],
+        values=None if values is None else values[None],
+        tenant=None if tenant is None else tenant[None, :],
+        insert_on_miss=insert_on_miss)
+    return state, clients, stats, AccessResult(
+        hit=res.hit[0], value=res.value[0], evicted=res.evicted[0],
+        regret=res.regret[0])
+
+
+class TraceResult(NamedTuple):
+    state: CacheState
+    clients: ClientState
+    stats: OpStats
+    hits: torch.Tensor      # i64[R] per-round hit counts
+    ops: torch.Tensor       # i64[R] per-round op counts
+    weights: torch.Tensor   # f32[R, E] global weight trajectory
+
+
+def _leaves(tree) -> list:
+    return [t for part in tree for t in part]
+
+
+def _rebuild(tree, leaves) -> tuple:
+    out, i = [], 0
+    for part in tree:
+        out.append(type(part)(*leaves[i:i + len(part)]))
+        i += len(part)
+    return tuple(out)
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    leaves: list        # the carry the graph reads and overwrites
+    xs: tuple           # the step input it reads
+    ys: tuple           # the step output it writes
+
+
+# Captured steps, by (step key, device, carry and one step's input
+# signatures: the number of steps is not part of it), and
+# one memory pool per device that they share: replays run one at a time
+# on one stream, so no two graphs' intermediates are live together.
+_GRAPHS: dict = {}
+_POOLS: dict = {}
+
+
+def capture_graph(fn, pool=None):
+    """Run ``fn()`` once on a side stream (the warm-up: kernel builds,
+    cached constants, launch counters), then capture a second call as a
+    CUDA graph on the current device.  Returns the graph and what the
+    captured call returned; each replay rewrites those outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return graph, out
+
+
+def _sig(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _captured_step(step, key, carry, xs) -> _Captured:
+    """The graph of ``step`` for this key and these shapes, captured at
+    first use: it reads a private copy of the carry and one element of
+    ``xs``, and overwrites the copy with the step's result."""
+    dev = xs[0].device
+    k = (key, dev, _sig(_leaves(carry)), _sig(x[0] for x in xs))
+    if k in _GRAPHS:
+        return _GRAPHS[k]
+    leaves = [t.clone() for t in _leaves(carry)]
+    carry_s = _rebuild(carry, leaves)
+    x_s = tuple(x[0].clone() for x in xs)
+    inputs = {t.untyped_storage().data_ptr() for t in leaves}
+
+    def run():
+        new, y = step(carry_s, x_s)
+        for dst, src in zip(leaves, _leaves(new)):
+            if src is dst:
+                continue
+            if src.untyped_storage().data_ptr() in inputs:
+                raise RuntimeError("a step output aliases its input carry")
+            dst.copy_(src)
+        return y
+
+    if dev not in _POOLS:
+        _POOLS[dev] = torch.cuda.graph_pool_handle()
+    with torch.cuda.device(dev):
+        graph, y_s = capture_graph(run, _POOLS[dev])
+    _GRAPHS[k] = _Captured(graph, leaves, x_s, y_s)
+    return _GRAPHS[k]
+
+
+def _scan(step, carry, xs, key):
+    """``lax.scan`` of the JAX package: ``carry, y = step(carry, x)`` for
+    each x along the leading axis of the tensors ``xs``; returns the last
+    carry and the ys stacked (None for an empty sequence).  ``key`` names
+    the step (what it computes, apart from the shapes of its tensors).
+
+    On the CPU this is a Python loop.  On the card the step is captured
+    as a CUDA graph once per key, device and shapes, and replayed per
+    element: the step issues no host sync and no upload, so the graph is
+    the step, and a replay costs one launch instead of the step's
+    thousand-odd operator launches.  The graph works on its own copy of
+    the carry; the caller's tensors are copied in and the result copied
+    out, so neither is shared with the graph."""
+    n = xs[0].shape[0]
+    if n == 0:
+        return carry, None
+    if xs[0].device.type != "cuda":
+        ys = []
+        for i in range(n):
+            carry, y = step(carry, tuple(x[i] for x in xs))
+            ys.append(y)
+        return carry, tuple(torch.stack(p) for p in zip(*ys))
+
+    cap = _captured_step(step, key, carry, xs)
+    for dst, src in zip(cap.leaves, _leaves(carry)):
+        dst.copy_(src)
+    ys = tuple(torch.empty((n,) + tuple(y.shape), dtype=y.dtype,
+                           device=y.device) for y in cap.ys)
+    for i in range(n):
+        for dst, x in zip(cap.xs, xs):
+            dst.copy_(x[i])
+        cap.graph.replay()
+        for buf, y in zip(ys, cap.ys):
+            buf[i].copy_(y)
+    return _rebuild(carry, [t.clone() for t in cap.leaves]), ys
+
+
+def _trace_inputs(keys, is_write, obj_size, tenant):
+    """The op tensors of a trace, with the defaults filled in."""
+    z = torch.zeros_like(keys)
+    return (keys, z.bool() if is_write is None else is_write,
+            z + 1 if obj_size is None else obj_size,
+            z if tenant is None else tenant)
+
+
+def _run_trace_impl(cfg: CacheConfig, state: CacheState,
+                    clients: ClientState, keys: torch.Tensor,
+                    is_write: torch.Tensor | None = None,
+                    obj_size: torch.Tensor | None = None,
+                    tenant: torch.Tensor | None = None) -> TraceResult:
+    """Run a [T, C] trace, one round per step."""
+    T, C = keys.shape
+
+    def step(carry, xs):
+        st, cl, sa = carry
+        k, w, sz, tn = xs
+        st, cl, sa, res = access(cfg, st, cl, sa, k, is_write=w,
+                                 obj_size=sz, tenant=tn)
+        return (st, cl, sa), (res.hit.sum(), (k != 0).sum(), st.weights)
+
+    (state, clients, stats), ys = _scan(
+        step, (state, clients, init_stats(keys.device)),
+        _trace_inputs(keys, is_write, obj_size, tenant), ("access", cfg))
+    if ys is None:
+        ys = _empty_ys(cfg, keys.device, ())
+    return TraceResult(state, clients, stats, *ys)
+
+
+def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
+                            clients: ClientState, keys: torch.Tensor,
+                            is_write: torch.Tensor | None = None,
+                            obj_size: torch.Tensor | None = None,
+                            tenant: torch.Tensor | None = None
+                            ) -> TraceResult:
+    """Run a planned [NG, G, C] grouped trace, one group per step.
+    Per-round hit/op counts ([NG*G]); weights repeat per round."""
+    NG, G, C = keys.shape
+
+    def step(carry, xs):
+        st, cl, sa = carry
+        k, w, sz, tn = xs
+        st, cl, sa, res = access_group(cfg, st, cl, sa, k, is_write=w,
+                                       obj_size=sz, tenant=tn)
+        return (st, cl, sa), (res.hit.sum(dim=1), (k != 0).sum(dim=1),
+                              st.weights)
+
+    (state, clients, stats), ys = _scan(
+        step, (state, clients, init_stats(keys.device)),
+        _trace_inputs(keys, is_write, obj_size, tenant),
+        ("access_group", cfg))
+    if ys is None:
+        ys = _empty_ys(cfg, keys.device, (G,))
+    hits, ops, w = ys
+    return TraceResult(state, clients, stats, hits.reshape(-1),
+                       ops.reshape(-1), _repeat(w, G))
+
+
+def _empty_ys(cfg: CacheConfig, dev, round_shape) -> tuple:
+    return (torch.zeros((0,) + round_shape, dtype=I64, device=dev),
+            torch.zeros((0,) + round_shape, dtype=I64, device=dev),
+            torch.zeros((0, cfg.n_experts), dtype=F32, device=dev))
+
+
+def make_cache(cfg: CacheConfig, n_clients: int, seed: int = 0, device=None):
+    return (init_cache(cfg, device), init_clients(cfg, n_clients, seed, device),
+            init_stats(device))

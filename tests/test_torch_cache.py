@@ -1,0 +1,232 @@
+"""The port's cache engine and ``execute()`` against the JAX package, on
+the CPU.
+
+Seeded YCSB-A and YCSB-C traces run through ``repro.core.execute`` and
+``repro_torch.core.execute`` from the same config and seed, sequentially
+(``plan=None``) and as a strict ``GroupPlan`` of width 8, under both
+backends; then from a JAX-warmed state carried across with
+``state_from_numpy``, and one group of duplicate SETs.  The JAX fused
+backend runs its Pallas kernels in interpret mode.
+
+Tolerance: integer state, ``OpStats``, the FC-cache columns and the
+per-round hits are bit-equal.  The f32 columns (``weights``,
+``local_weights``, ``penalty_acc``, ``ext``, ``gds_L``) are held to
+``assert_array_max_ulp(maxulp=4)``: XLA and PyTorch round ``exp`` and
+``pow`` apart in the last place.
+"""
+
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import cache as j_cache
+from repro.core import types as j_types
+from repro.core.execute import execute as j_execute
+from repro.core.execute import make as j_make
+from repro.workloads import gen as j_gen
+from repro.workloads import plan as j_plan
+from repro_torch.core import cache as t_cache
+from repro_torch.core import types as t_types
+from repro_torch.core.execute import execute as t_execute
+from repro_torch.core.execute import make as t_make
+from repro_torch.workloads import gen as t_gen
+from repro_torch.workloads import plan as t_plan
+
+REPO = Path(__file__).resolve().parents[1]
+C = 8
+EXPERTS = {"reference": ("lru", "lfu", "gdsf", "lrfu"),
+           "fused": ("lru", "lfu", "hyperbolic")}
+
+
+def _cfgs(backend, **kw):
+    kw = dict(n_buckets=64, assoc=4, capacity=96, sync_period=4,
+              experts=EXPERTS[backend], backend=backend, **kw)
+    return j_types.CacheConfig(**kw), t_types.CacheConfig(**kw)
+
+
+def _trace(workload, n=1200, seed=3):
+    keys, wr = j_gen.ycsb(workload, n, n_keys=400, seed=seed)
+    tk, tw = t_gen.ycsb(workload, n, n_keys=400, seed=seed)
+    assert np.array_equal(keys, tk) and np.array_equal(wr, tw)
+    return j_gen.interleave(keys, C, wr)
+
+
+def _assert_tree(got: dict, want, what: str):
+    for f in want._fields:
+        w = np.asarray(getattr(want, f))
+        g = got[f]
+        assert g.shape == w.shape, (what, f)
+        if w.dtype.kind == "f":
+            try:
+                np.testing.assert_array_max_ulp(g, w, maxulp=4)
+            except AssertionError as e:
+                raise AssertionError(f"{what}.{f}: {e}") from None
+        else:
+            assert np.array_equal(g, w.astype(g.dtype)), (what, f)
+
+
+def _assert_same(t_res, j_res):
+    assert np.array_equal(t_res.hits, np.asarray(j_res.hits))
+    assert np.array_equal(t_res.ops, np.asarray(j_res.ops))
+    np.testing.assert_array_max_ulp(t_res.weights, np.asarray(j_res.weights),
+                                    maxulp=4)
+    _assert_tree(t_types.state_to_numpy(t_res.state), j_res.state, "state")
+    _assert_tree(t_types.clients_to_numpy(t_res.clients), j_res.clients,
+                 "clients")
+    _assert_tree(t_types.stats_to_numpy(t_res.stats), j_res.stats, "stats")
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+@pytest.mark.parametrize("plan", [None, "strict8"])
+@pytest.mark.parametrize("workload", ["A", "C"])
+def test_execute_matches_jax(workload, plan, backend):
+    cfg_j, cfg_t = _cfgs(backend)
+    keys, wr = _trace(workload)
+    jp = tp = None
+    if plan == "strict8":
+        jp = j_plan.plan_groups(keys, cfg_j.n_buckets, 8, scope="strict",
+                                is_write=wr)
+        tp = t_plan.plan_groups(keys, cfg_t.n_buckets, 8, scope="strict",
+                                is_write=wr)
+        for f in ("keys", "is_write", "sizes", "src_t"):
+            assert np.array_equal(getattr(jp, f), getattr(tp, f)), f
+    jr = j_execute(j_make(cfg_j, C, 0), keys, plan=jp, is_write=wr)
+    tr = t_execute(t_make(cfg_t, C, 0, device="cpu"), keys, plan=tp,
+                   is_write=wr)
+    _assert_same(tr, jr)
+    assert int(tr.stats.evictions) > 0 and int(tr.stats.weight_syncs) > 0
+    assert int(tr.stats.regrets) > 0 and int(tr.stats.fc_flushes) > 0
+
+
+def test_warm_state_carried_across_from_jax():
+    """Both packages continue from one JAX-warmed table: the carried
+    state makes the same decisions as the JAX state it came from."""
+    cfg_j, cfg_t = _cfgs("fused")
+    keys, wr = _trace("A", n=1600, seed=9)
+    half = keys.shape[0] // 2
+    warm = j_execute(j_make(cfg_j, C, 1), keys[:half], plan=None,
+                     is_write=wr[:half])
+    jp = j_plan.plan_groups(keys[half:], cfg_j.n_buckets, 8, scope="strict",
+                            is_write=wr[half:])
+    jr = j_execute(warm.cache, keys[half:], plan=jp, is_write=wr[half:])
+    tc = t_make(cfg_t, C, 1, device="cpu")._replace(
+        state=t_types.state_from_numpy(warm.state, "cpu"),
+        clients=t_types.clients_from_numpy(warm.clients, "cpu"),
+        stats=t_types.stats_from_numpy(warm.stats, "cpu"))
+    tp = t_plan.plan_groups(keys[half:], cfg_t.n_buckets, 8, scope="strict",
+                            is_write=wr[half:])
+    tr = t_execute(tc, keys[half:], plan=tp, is_write=wr[half:])
+    _assert_same(tr, jr)
+    assert int(tr.stats.evictions) > int(warm.stats.evictions)
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_duplicate_sets_in_one_group_are_last_writer_wins(backend):
+    """Several lanes and rounds SET the same (present) keys in one group:
+    the payload and size the table keeps are the last request's, in both
+    packages."""
+    cfg_j, cfg_t = _cfgs(backend, value_words=2)
+    G = 3
+    k0 = np.arange(1, C + 1, dtype=np.uint32)[None, :]
+    step = jax.jit(functools.partial(j_cache.access_group, cfg_j))
+    js, jc, jst = j_cache.make_cache(cfg_j, C, 0)
+    js, jc, jst, _ = step(js, jc, jst, jnp.asarray(k0))
+    keys = np.tile(np.array([5, 5, 2, 5, 7, 2, 0, 3], np.uint32), (G, 1))
+    wr = np.ones((G, C), bool)
+    wr[1, 3] = False
+    size = (1 + np.arange(G * C) % 3).reshape(G, C).astype(np.uint32)
+    vals = np.arange(G * C * 2, dtype=np.uint32).reshape(G, C, 2) + 100
+    js2, jc2, jst2, jres = step(
+        js, jc, jst, jnp.asarray(keys), is_write=jnp.asarray(wr),
+        obj_size=jnp.asarray(size), values=jnp.asarray(vals))
+    ts, tc = t_types.state_from_numpy(js), t_types.clients_from_numpy(jc)
+    tst = t_types.stats_from_numpy(jst)
+    t64 = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64))
+    ts2, tc2, tst2, tres = t_cache.access_group(
+        cfg_t, ts, tc, tst, t64(keys), is_write=torch.from_numpy(wr),
+        obj_size=t64(size), values=t64(vals))
+    assert np.array_equal(tres.hit.numpy(), np.asarray(jres.hit))
+    _assert_tree(t_types.state_to_numpy(ts2), js2, "state")
+    _assert_tree(t_types.stats_to_numpy(tst2), jst2, "stats")
+    # Last writer: key 5's final SET is round 2, lane 3 (lane 3 of round 1
+    # is a GET); key 2's is round 2, lane 5.
+    got = t_types.state_to_numpy(ts2)
+    slot5 = int(np.nonzero(got["key"] == 5)[0][0])
+    assert list(got["values"][slot5]) == list(vals[2, 3])
+    assert got["size"][slot5] == size[2, 3]
+
+
+def test_unported_options_raise():
+    keys = torch.ones((1, C), dtype=torch.int64)
+    for kw in (dict(n_tenants=2), dict(l0_entries=4), dict(sanitize=True)):
+        cfg = t_types.CacheConfig(n_buckets=64, assoc=4, capacity=96, **kw)
+        st, cl, sa = t_cache.make_cache(cfg, C, 0, "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_cache.access_group(cfg, st, cl, sa, keys)
+
+
+def test_make_without_a_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = t_types.CacheConfig(n_buckets=64, assoc=4, capacity=96)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_make(cfg, C)
+    assert t_make(cfg, C, device="cpu").device.type == "cpu"
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(REPO / "src" / "repro_torch")
+                                  .with_suffix("").parts)
+        for p in (REPO / "src" / "repro_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import sys\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "print(len([m for m in sys.modules "
+            "if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= len(mods)
+    smoke = subprocess.run([sys.executable, "-c",
+                            "import ast,sys; t=ast.parse(open(sys.argv[1]).read());"
+                            "print(sorted({(n.module if isinstance(n, ast.ImportFrom)"
+                            " else a.name).split('.')[0] for n in ast.walk(t)"
+                            " if isinstance(n, (ast.Import, ast.ImportFrom))"
+                            " for a in (n.names if isinstance(n, ast.Import)"
+                            " else [n])}))", str(REPO / "chip_smoke.py")],
+                           capture_output=True, text=True, timeout=60)
+    tops = eval(smoke.stdout)
+    assert "jax" not in tops and "repro" not in tops, tops
+
+
+def test_windows_mark_the_first_segment_at_each_width():
+    """A segment is ``compiled`` the first time its (config, width,
+    lanes, device) runs: that one pays the warm-up step and, on the
+    card, the step's graph capture, so the cost model skips it."""
+    _, cfg = _cfgs("reference", fc_threshold=9)   # a config of this test
+    keys, wr = _trace("C", n=640, seed=11)
+    half = keys.shape[0] // 2
+    gp = t_plan.plan_groups(keys[:half], cfg.n_buckets, 4, is_write=wr[:half])
+    model = t_plan.PlanCostModel()
+    r1 = t_execute(t_make(cfg, C, 0, device="cpu"), keys[:half], plan=gp,
+                   is_write=wr[:half], model=model)
+    r2 = t_execute(r1.cache, keys[half:], plan=None, model=model)
+    r3 = t_execute(r2.cache, keys[:half], plan=gp, is_write=wr[:half],
+                   model=model)
+    marks = [w["compiled"] for r in (r1, r2, r3) for w in r.windows]
+    assert marks == [True, True, False]
