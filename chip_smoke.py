@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                     # the full run (one card)
     python3 chip_smoke.py --profile 200 --out runs/smoke.json
-                                              # + a traced window, saved
+                                              # + traced windows, saved
 
 ``--requests N`` shortens the end-to-end phase; below ~4.5M requests
 the table does not fill, and the run fails its eviction check.
@@ -30,11 +30,59 @@ Phases, each of which raises (exit code != 0) on any failure:
 5. End to end, adaptive: 2,000 more rounds through ``execute()`` with
    its default plan (``"adaptive"``, a width per 64-row window), from
    the caches phase 4 left, checked the same way.
+6. Flash kernel: ``flash_attention`` against its plain version on the
+   card at yi-9b's (B=1, T=4096, H=32, D=128) and smollm-135m's (B=4,
+   T=2048, H=9, D=64) attention shapes in bf16 and f32, with k and v as
+   ``repeat_kv``'s GQA expand view, at a ragged T = 1000, and once with
+   plain [B, T, H, D] k and v.  Every output row (b, t, h) must be within
+   a relative L2 error of 2^-7 in bf16 and 2^-16 in f32 of the plain
+   version's f32 output (about twice the largest reading on the card),
+   and every element within 2e-2 in bf16 and 2e-5 in f32 of the plain
+   version's output (as ``tests/test_kernels.py`` holds the Pallas
+   kernel).  Controls on yi-9b's bf16 inputs show the row bound's two
+   sides: the kernel's recurrence written in PyTorch passes it; the same
+   recurrence without the rescale of the running sum, or of the sum and
+   the accumulator, the plain output 3% off past the first tile, and
+   bf16 scores (the JAX package's ``full_attention``) each fail it.
+   Then the kernel, its plain version and PyTorch's SDPA (the yardstick,
+   ``library_ms``) are timed with CUDA events at yi-9b's prefill shape
+   T = 32,768, B = 1 (the ``prefill_32k`` cell has global batch 32;
+   batch 1 is the cut), and the kernel is checked there too.
+7. Prefill forward of yi-9b at full width (48 layers, d_model 4096),
+   random bf16 weights from ``init_params`` with a seeded generator on
+   the card, at T = 4096, B = 1.  Each of the 48 launches is held
+   against the plain version on its own in-model inputs (both bounds of
+   phase 6), and the kernel must launch 48 times a forward.  Then the
+   hidden states of the kernel path against the same ``forward`` with
+   every attention through the plain version (f32 softmax), in relative
+   L2, within twice the bf16 noise measured in the same run: the
+   distance of the JAX package's own bf16 attention path
+   (``full_attention``: bf16 scores and probabilities) from the plain
+   path.  48 random layers amplify any rounding difference to about the
+   same distance (a fault in a layer gives one near 1).  Then
+   T = 32,768, B = 1 through the kernel path: wall time, tokens/s and
+   peak memory.
+8. Serving: ``DecodeEngine`` on yi-9b at full width answers 24 requests
+   (prompt 96 tokens with a shared 48-token prefix, 16 new tokens,
+   4 lanes, pages of 16 tokens, a 32-page pool, so the Ditto page cache
+   evicts).  Every request must finish, the prefix hit rate and the
+   evictions be > 0, and the page cache's three kernels have launched.
+   The page cache's lookup stream is replayed through a fresh page cache
+   on the card, with every launch of its three kernels held against the
+   plain version on the same inputs (at the engine's shapes: one key a
+   lookup on a 512-slot table), and through one on the CPU; each
+   lookup's answer and the final state must equal the engine's.
+   Every request's greedy tokens must equal the argmax of the prefill
+   ``forward`` over its prompt and output, at every position where that
+   forward's top-two logit margin exceeds twice the bf16 noise: the
+   largest logit difference between the prefill and a one-lane decode
+   replay of the first request's tokens.  Near-ties are counted and
+   skipped; at least one position must be checked.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
-counters are set to 0 just before each run of the main path and read
-just after it.
+counters are set to 0 just before each run of a main path (the cache's,
+the prefill forward's, the engine's) and read just after it.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -44,8 +92,8 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -54,6 +102,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 N_BUCKETS, ASSOC, CAPACITY = 262_144, 8, 1_048_576
 LANES, BATCH = 64, 32
@@ -61,18 +110,30 @@ N_KEYS = 10_000_000
 SEQ_ROUNDS = 1_000
 ADAPTIVE_ROWS = 2_000
 EXPERTS_ALL = ("lru", "lfu", "fifo", "size", "hyperbolic")
+CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
+# Phase 6: (arch, B, T, H, D, H / Hkv) of the two attention shapes.
+FLASH_SHAPES = (("yi-9b", 1, 4096, 32, 128, 8),
+                ("smollm-135m", 4, 2048, 9, 64, 3))
+# Each element within tol + tol*|want| of the plain version's output, as
+# tests/test_kernels.py holds the Pallas kernel; too loose to see a fault
+# in the late rows, whose values are a few hundredths at T = 32,768.
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# The sharper bound: each output row's (b, t, h) relative L2 error against
+# the plain version's f32 output.  In bf16 about twice the largest reading
+# on an H100 (PERF.md: 3.7e-3, the bf16 rounding of the output and of the
+# probabilities), and under what a 3% error in a row (3.3e-2) or bf16
+# scores (1.8e-2) give; phase 6's controls check both sides of it on every
+# run.  In f32 with room for the error's growth with T (2.3e-6 at
+# T = 4096).
+FLASH_ROW_TOL = {"bfloat16": 2 ** -7, "float32": 2 ** -16}
+FLASH_TILE = 64         # the kernel's KV tile and query tile
+PREFILL_T, PREFILL_LONG_T = 4096, 32_768
+ENGINE = dict(requests=24, prompt=96, shared=48, new=16, lanes=4,
+              page_size=16, pool_pages=32)
 
 
 def log(*a) -> None:
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +194,24 @@ def same_int(name, got, want) -> None:
 
 def close_f32(name, got, want, maxulp: int) -> float:
     import torch
-    d = ulp_diff(got.cpu().numpy(), want.cpu().numpy())
+    got, want = got.cpu(), want.cpu()
+    d = ulp_diff(got.numpy(), want.numpy())
     if d > maxulp:
         raise AssertionError(f"{name}: {d} ulp apart (bound {maxulp})")
     diff = torch.where(got == want, 0.0, got.double() - want.double())
     return float(diff.abs().max()) if got.numel() else 0.0
+
+
+def same_parts(tag: str, a, b, maxulp: int) -> None:
+    """Two (state, clients, stats) triples: integers bit-equal, f32
+    within maxulp."""
+    for part, ta, tb in zip(("state", "clients", "stats"), a, b):
+        for f in ta._fields:
+            x, y = getattr(ta, f), getattr(tb, f)
+            if x.dtype.is_floating_point:
+                close_f32(f"{tag}.{part}.{f}", x, y, maxulp)
+            else:
+                same_int(f"{tag}.{part}.{f}", x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -366,19 +440,12 @@ def bound_bytes(name: str, args, kw) -> int:
 def compare_runs(tag: str, a, b) -> None:
     """Fused vs reference ExecResults: integers bit-equal, f32 <= 4 ulp."""
     import numpy as np
-    import torch
     if not np.array_equal(a.hits, b.hits):
         raise AssertionError(f"{tag}: per-round hits differ")
     if not np.array_equal(a.ops, b.ops):
         raise AssertionError(f"{tag}: per-round ops differ")
-    for part in ("state", "clients", "stats"):
-        ta, tb = getattr(a, part), getattr(b, part)
-        for f in ta._fields:
-            x, y = getattr(ta, f), getattr(tb, f)
-            if x.dtype.is_floating_point:
-                close_f32(f"{tag}.{part}.{f}", x, y, 4)
-            else:
-                same_int(f"{tag}.{part}.{f}", x, y)
+    same_parts(tag, (a.state, a.clients, a.stats),
+               (b.state, b.clients, b.stats), 4)
     d = ulp_diff(a.weights, b.weights)
     if d > 4:
         raise AssertionError(f"{tag}: weight trajectories {d} ulp apart")
@@ -398,6 +465,13 @@ def check_state(tag: str, res) -> None:
         raise AssertionError(f"{tag}: expert weights {w.tolist()}")
     if not 0.0 < res.hit_rate < 1.0:
         raise AssertionError(f"{tag}: hit ratio {res.hit_rate}")
+
+
+def cache_launches() -> dict:
+    """The device launch counts of the cache's three kernels."""
+    from repro_torch.kernels import ops
+    n = ops.launches()
+    return {k: n[k] for k in CACHE_KERNELS}
 
 
 def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
@@ -437,7 +511,7 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
         r = execute(c, k2[:T], plan=gp, is_write=w2[:T])
-        launches = ops.launches()
+        launches = cache_launches()
         peak = torch.cuda.max_memory_allocated(dev)
         n = int(r.ops.sum())
         log(f"[{card}] grouped {backend}: {n} requests in {r.wall_s:.2f} s "
@@ -469,7 +543,7 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
     for backend in ("fused", "reference"):
         ops.reset_launches()
         r = execute(res[backend].cache, ks, plan=None, is_write=ws)
-        launches = ops.launches()
+        launches = cache_launches()
         n = int(r.ops.sum())
         log(f"[{card}] sequential {backend}: {n} requests in {r.wall_s:.2f} "
             f"s = {n / r.wall_s:.0f} requests/s, "
@@ -492,7 +566,7 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
     for backend in ("fused", "reference"):
         ops.reset_launches()
         r = execute(seq[backend].cache, ka, is_write=wa)
-        launches = ops.launches()
+        launches = cache_launches()
         n = int(r.ops.sum())
         widths = sorted({w["width"] for w in r.windows})
         steps = sum(w["n_steps"] for w in r.windows)
@@ -522,7 +596,8 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
 PROFILE_GROUPS = (
     ("hand-written", ("access_probe_kernel", "ranked_eviction_kernel",
                       "init_and_faa_kernel", "combine_kernel",
-                      "write_kernel(")),
+                      "write_kernel(", "flash_bf16_kernel")),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
     ("device copies", ("Memcpy DtoD", "memcpy", "direct_copy_kernel")),
     ("concatenation", ("CatArrayBatchedCopy",)),
     ("bitwise and shifts", ("Bitwise", "shift_kernel")),
@@ -554,34 +629,564 @@ def profile_steps(dev, card: str, gp, trace, n_groups: int,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             r = execute(c, trace, plan=sub)
-        rows = []
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = e.self_cuda_time_total
-            if t > 0:
-                rows.append((t, e.count, e.key))
-        rows.sort(reverse=True)
-        total = sum(t for t, _, _ in rows)
-        if out_dir is not None:
-            out_dir.mkdir(parents=True, exist_ok=True)
-            (out_dir / f"profile_{backend}.txt").write_text("".join(
-                f"{t:12.1f} us {n:8d} x  {k}\n" for t, n, k in rows))
-        log(f"[{card}] profile {backend}: {n_groups} steps, device "
-            f"{total / n_groups:.0f} us/step, wall "
-            f"{r.wall_s * 1e6 / n_groups:.0f} us/step, device busy "
-            f"{total / 1e6 / r.wall_s:.3f} of the wall; top kernels:")
-        for t, n, k in rows[:8]:
-            log(f"    {t / n_groups:9.1f} us/step  {n // n_groups:5d}/step"
-                f"  {k[:90]}")
-        cats: dict = {}
-        for t, n, k in rows:
-            c = next((c for c, keys in PROFILE_GROUPS
-                      if any(key in k for key in keys)), "other")
-            cats[c] = cats.get(c, 0.0) + t
-        log("    by kind, us/step: " + ", ".join(
-            f"{c} {t / n_groups:.1f}" for c, t in
-            sorted(cats.items(), key=lambda x: -x[1])))
+        report_profile(prof, card, backend, n_groups, r.wall_s, out_dir)
+
+
+def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
+                   out_dir: Path | None) -> None:
+    """Print where a traced window's device time goes (per step, and the
+    busy share of the wall) and, given ``out_dir``, write the whole
+    kernel table there.  Only device events count: run eagerly, a CPU
+    operator (``aten::mm``) also carries the device time of the kernels
+    it launched, and the profiler's own buffer markers are no work."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA
+                or e.key in ("Command Buffer Full", "Activity Buffer Request",
+                             "Buffer Flush")):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            rows.append((t, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(t for t, _, _ in rows)
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"profile_{tag}.txt").write_text("".join(
+            f"{t:12.1f} us {n:8d} x  {k}\n" for t, n, k in rows))
+    log(f"[{card}] profile {tag}: {n_steps} steps, device "
+        f"{total / n_steps:.0f} us/step, wall "
+        f"{wall_s * 1e6 / n_steps:.0f} us/step, device busy "
+        f"{total / 1e6 / wall_s:.3f} of the wall; top kernels:")
+    for t, n, k in rows[:8]:
+        log(f"    {t / n_steps:9.1f} us/step  {n // n_steps:5d}/step"
+            f"  {k[:90]}")
+    cats: dict = {}
+    for t, n, k in rows:
+        c = next((c for c, keys in PROFILE_GROUPS
+                  if any(key in k for key in keys)), "other")
+        cats[c] = cats.get(c, 0.0) + t
+    log("    by kind, us/step: " + ", ".join(
+        f"{c} {t / n_steps:.1f}" for c, t in
+        sorted(cats.items(), key=lambda x: -x[1])))
+
+
+def profile_lm(dev, card: str, cfg, params, n_steps: int,
+               out_dir: Path | None) -> None:
+    """Trace one yi-9b prefill forward at T = 4096 and n_steps decode
+    steps of the engine's 4 lanes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import forward
+    from repro_torch.serve import init_cache, make_serve_step
+
+    toks = torch.randint(1, cfg.vocab_size, (1, PREFILL_T), device=dev)
+    forward(params, cfg, tokens=toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward(params, cfg, tokens=toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, card, "prefill_4k", 1, wall, out_dir)
+
+    step = make_serve_step(cfg)
+    lanes = ENGINE["lanes"]
+    cache = init_cache(cfg, lanes, 256, dev)
+    tok = torch.ones((lanes, 1), dtype=torch.int64, device=dev)
+    step(params, cache, tokens=tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            tok = step(params, cache, tokens=tok)[0][:, None].long()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, card, "decode_step", n_steps, wall, out_dir)
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-8: the LM serving slice (flash kernel, prefill, engine).
+# ---------------------------------------------------------------------------
+
+def flash_inputs(dev, B, T, H, D, n_rep, dtype, seed):
+    """q [B, T, H, D]; k and v as repeat_kv's GQA view of [B, T, H/n_rep,
+    D] (the main path's form)."""
+    import torch
+    from repro_torch.models.attention import repeat_kv
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    k, v = (repeat_kv(torch.randn(B, T, H // n_rep, D, generator=g,
+                                  device=dev).to(dtype), n_rep)
+            for _ in range(2))
+    return q, k, v
+
+
+def plain32(q, k, v):
+    """The plain version's output before its rounding to q's dtype (it
+    computes in f32 whatever the inputs' dtype)."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_ref(q.float(), k, v)
+
+
+def row_err(got, want32) -> float:
+    """The largest relative L2 error of one output row (b, t, h)."""
+    d = (got.float() - want32).norm(dim=-1) / want32.norm(dim=-1)
+    return float(d.max())
+
+
+def flash_close(tag, got, want32) -> tuple:
+    """got against the plain version's f32 output want32: every row
+    within FLASH_ROW_TOL, and every element within FLASH_TOL of the plain
+    version's own output (want32 in got's dtype).  Returns the max abs
+    error and the max row error."""
+    import torch
+    dt = str(got.dtype).split(".")[-1]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: non-finite output")
+    w = want32.to(got.dtype).float()
+    err = (got.float() - w).abs()
+    tol = FLASH_TOL[dt]
+    if bool((err > tol + tol * w.abs()).any()):
+        raise AssertionError(f"{tag}: max abs error {float(err.max()):.3g} "
+                             f"over the tolerance {tol}")
+    rows = row_err(got, want32)
+    if rows > FLASH_ROW_TOL[dt]:
+        raise AssertionError(f"{tag}: a row's relative L2 error {rows:.3g} "
+                             f"is over {FLASH_ROW_TOL[dt]:.3g}")
+    return float(err.max()), rows
+
+
+def tiled_attention(q, k, v, fault: str = ""):
+    """The kernel's recurrence in plain PyTorch: KV tiles of FLASH_TILE,
+    running max, sum and accumulator in f32, the probabilities in q's
+    dtype for the P.V product, output in q's dtype.  ``fault`` breaks it
+    as a kernel could: "l" leaves the running sum unrescaled when the
+    running max grows, "acc_and_l" rescales neither."""
+    import torch
+    from repro_torch.kernels.ref import gqa_heads
+    k, v = gqa_heads(k), gqa_heads(v)
+    b, t, h, d = q.shape
+    qs = q.float().transpose(1, 2) * d ** -0.5
+    m = torch.full((b, h, t), -1e30, device=q.device)
+    l = torch.zeros((b, h, t), device=q.device)
+    acc = torch.zeros((b, h, t, d), device=q.device)
+    pos = torch.arange(t, device=q.device)
+    for j0 in range(0, t, FLASH_TILE):
+        j1 = min(t, j0 + FLASH_TILE)
+        s = qs @ k[:, j0:j1].float().permute(0, 2, 3, 1)
+        s = s.masked_fill(pos[None, j0:j1] > pos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = (l if fault else l * alpha) + p.sum(-1)
+        acc = (acc if fault == "acc_and_l" else acc * alpha[..., None]) + (
+            p.to(q.dtype).float() @ v[:, j0:j1].float().transpose(1, 2))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2).to(q.dtype)
+
+
+def flash_controls(q, k, v, want32) -> dict:
+    """The row bound on known outputs of the same inputs: the kernel's
+    recurrence done right must pass it; the recurrence with a missing
+    rescale, the plain output with every row past the first tile 3% off,
+    and the JAX package's bf16 attention (bf16 scores and probabilities)
+    must each fail it.  Returns each one's max row error."""
+    from repro_torch.models.attention import full_attention
+    tol = FLASH_ROW_TOL[str(q.dtype).split(".")[-1]]
+    shifted = want32.clone()
+    shifted[:, FLASH_TILE:] *= 1 + 2 ** -5
+    errs = {name: row_err(o, want32) for name, o in (
+        ("recurrence", tiled_attention(q, k, v)),
+        ("no_l_rescale", tiled_attention(q, k, v, "l")),
+        ("no_rescale", tiled_attention(q, k, v, "acc_and_l")),
+        ("late_rows_3pct", shifted.to(q.dtype)),
+        ("bf16_scores", full_attention(q, k, v)))}
+    if errs["recurrence"] > tol:
+        raise AssertionError(f"the kernel's recurrence in PyTorch fails the "
+                             f"row bound: {errs}")
+    passed = [n for n, e in errs.items() if n != "recurrence" and e <= tol]
+    if passed:
+        raise AssertionError(f"the row bound {tol:.3g} does not see "
+                             f"{passed}: {errs}")
+    return errs
+
+
+def check_flash(dev, card: str, results: dict) -> None:
+    """Phase 6."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops, ref
+
+    r = results.setdefault("flash_attention", {})
+    cases = [(arch, B, T, H, D, n, dt) for arch, B, T, H, D, n in FLASH_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [("ragged", 1, 1000, 32, 128, 8, dt)
+              for dt in (torch.bfloat16, torch.float32)]
+    errs, rows = {}, {}
+    for i, (arch, B, T, H, D, n_rep, dt) in enumerate(cases):
+        q, k, v = flash_inputs(dev, B, T, H, D, n_rep, dt, seed=SEED + i)
+        tag = f"flash_attention[{arch}, B={B}, T={T}, H={H}, D={D}, {dt}]"
+        want = plain32(q, k, v)
+        e, rw = flash_close(tag, ops.flash_attention_op(q, k, v), want)
+        errs[dt] = max(errs.get(dt, 0.0), e)
+        rows[dt] = max(rows.get(dt, 0.0), rw)
+        log(f"{tag}: max abs error {e:.3g}, max row error {rw:.3g} against "
+            f"the plain version")
+        if arch == "yi-9b" and dt == torch.bfloat16:
+            r["controls"] = flash_controls(q, k, v, want)
+            log(f"{tag}: row bound {FLASH_ROW_TOL['bfloat16']:.3g} passes "
+                f"the recurrence and fails the faults: " + ", ".join(
+                    f"{n} {x:.3g}" for n, x in r["controls"].items()))
+            # k and v as plain [B, T, H, D] tensors (no view).
+            k4, v4 = k.flatten(2, 3).contiguous(), v.flatten(2, 3).contiguous()
+            e, rw = flash_close(tag + " plain k/v",
+                                ops.flash_attention_op(q, k4, v4),
+                                plain32(q, k4, v4))
+            errs[dt], rows[dt] = max(errs[dt], e), max(rows[dt], rw)
+    r["max_abs_err"] = errs[torch.bfloat16]
+    r["max_abs_err_f32"] = errs[torch.float32]
+    r["row_err"] = rows[torch.bfloat16]
+    r["row_err_f32"] = rows[torch.float32]
+
+    # Timing at yi-9b's prefill shape, B = 1 (the main path's dtype and
+    # GQA view).  SDPA gets the same values with k and v as [B, H, T, D]
+    # views of materialized heads (made outside the timing).
+    _, B, _, H, D, n_rep = FLASH_SHAPES[0]
+    T = PREFILL_LONG_T
+    q, k, v = flash_inputs(dev, B, T, H, D, n_rep, torch.bfloat16, seed=99)
+    r["max_abs_err_32k"], r["row_err_32k"] = flash_close(
+        f"flash_attention[T={T}]", ops.flash_attention_op(q, k, v),
+        plain32(q, k, v))
+    k4, v4 = k.flatten(2, 3).contiguous(), v.flatten(2, 3).contiguous()
+    qt, kt, vt = q.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    # Launched from Python: at tens of ms a call the host's cost is noise.
+    r["ms"] = eager_ms(lambda: ops.flash_attention_op(q, k, v), n=5)
+    r["plain_ms"] = eager_ms(lambda: ref.flash_attention_ref(q, k, v), n=2)
+    r["library_ms"] = eager_ms(sdpa, n=5)
+    flops = 2 * B * H * T * T * D          # 0.5 * 4 * B*H*T^2*D, causal
+    nbytes = (2 * B * T * H * D + 2 * B * T * (H // n_rep) * D) * 2
+    r["flops"], r["bytes"] = flops, nbytes
+    r["bound_ms"] = max(flops / BF16_FLOP_PER_S,
+                        nbytes / HBM_BYTES_PER_S) * 1e3
+    r["bound_by"] = ("operations" if flops / BF16_FLOP_PER_S
+                     >= nbytes / HBM_BYTES_PER_S else "bytes")
+    q4, k4s, v4s = flash_inputs(dev, *FLASH_SHAPES[0][1:], torch.bfloat16,
+                                seed=98)
+    r["ms_4k"] = eager_ms(lambda: ops.flash_attention_op(q4, k4s, v4s), n=10)
+    r["bound_ms_4k"] = (2 * H * PREFILL_T ** 2 * D / BF16_FLOP_PER_S * 1e3)
+    log(f"[{card}] flash_attention at B={B}, T={T}, H={H}, D={D} bf16: "
+        f"{r['ms']:.2f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{r['bound_ms'] / r['ms']:.3f} of the bound {r['bound_ms']:.2f} ms "
+        f"by {r['bound_by']}), plain {r['plain_ms']:.1f} ms, SDPA "
+        f"{r['library_ms']:.2f} ms; at T={PREFILL_T}: {r['ms_4k']:.3f} ms "
+        f"(bound {r['bound_ms_4k']:.3f} ms)")
+
+
+def yi_params(dev):
+    """yi-9b at full width, random bf16 weights from a seeded generator
+    on the card."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, param_count
+    cfg = get_arch("yi-9b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    log(f"yi-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{param_count(cfg) / 1e9:.2f}B params "
+        f"made on the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
+    """Phase 7."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import forward
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(1, cfg.vocab_size, (1, PREFILL_T), generator=g,
+                         device=dev)
+    forward(params, cfg, tokens=toks)           # warm-up (cuBLAS, kernel)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    h = forward(params, cfg, tokens=toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{launches['flash_attention']} times, not "
+                             f"{cfg.n_layers}")
+    results["flash_attention"]["launches"] = launches["flash_attention"]
+    # Each launch against the plain version on its own in-model inputs.
+    kernel, errs = ops.flash_attention_op, []
+
+    def held(q, k, v):
+        o = kernel(q, k, v)
+        errs.append(flash_close(f"prefill layer {len(errs)}", o,
+                                plain32(q, k, v)))
+        return o
+
+    with mock.patch.object(ops, "flash_attention_op", held):
+        forward(params, cfg, tokens=toks)
+    if len(errs) != cfg.n_layers:
+        raise AssertionError(f"prefill: {len(errs)} attention calls")
+
+    from repro_torch.models.attention import full_attention
+    plain = {}
+    for name, fn in (("ref", ref.flash_attention_ref),
+                     ("full_attention", full_attention)):
+        with mock.patch.object(ops, "flash_attention_op", fn):
+            ops.reset_launches()
+            plain[name] = forward(params, cfg, tokens=toks).float()
+            if ops.launches()["flash_attention"] != 0:
+                raise AssertionError("a plain forward launched the kernel")
+    if not bool(torch.isfinite(h).all()):
+        raise AssertionError("prefill: non-finite hidden states")
+    h_ref = plain["ref"]
+    d = h.float() - h_ref
+    rel = float(d.norm() / h_ref.norm())
+    rel_full = float((plain["full_attention"] - h_ref).norm() / h_ref.norm())
+    table = params["unembed"].float()
+    lg = h[0, -16:].float() @ table.T
+    lg_ref = h_ref[0, -16:] @ table.T
+    noise = float((lg - lg_ref).abs().max())
+    out = dict(t=PREFILL_T, wall_s=wall, tokens_per_s=PREFILL_T / wall,
+               layer_max_abs_err=max(e for e, _ in errs),
+               layer_row_err=max(rw for _, rw in errs),
+               rel_l2=rel, rel_l2_full_attention=rel_full,
+               max_abs=float(d.abs().max()), logit_noise=noise,
+               launches=launches["flash_attention"])
+    results["flash_attention"]["layer_row_err"] = out["layer_row_err"]
+    log(f"[{card}] prefill yi-9b T={PREFILL_T}: {wall * 1e3:.1f} ms, "
+        f"{PREFILL_T / wall:.0f} tokens/s, flash launches "
+        f"{launches['flash_attention']}, each within {out['layer_max_abs_err']:.3g} "
+        f"(a row within {out['layer_row_err']:.3g}) of the plain version "
+        f"on its inputs; against the plain-attention path "
+        f"(f32 softmax): kernel path relative L2 {rel:.3g} (max abs "
+        f"{out['max_abs']:.3g}, logits of the last 16 positions up to "
+        f"{noise:.3g} apart), full_attention (bf16) path {rel_full:.3g}")
+    if not rel <= 2 * rel_full:
+        raise AssertionError(f"prefill: the kernel path is {rel:.3g} from "
+                             f"the plain path, over twice the bf16 "
+                             f"full_attention path's {rel_full:.3g}")
+    del h, h_ref, d, plain
+
+    toks = torch.randint(1, cfg.vocab_size, (1, PREFILL_LONG_T), generator=g,
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    h = forward(params, cfg, tokens=toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ops.launches()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if n != cfg.n_layers or not bool(torch.isfinite(h).all()):
+        raise AssertionError(f"prefill T={PREFILL_LONG_T}: {n} launches, "
+                             f"finite {bool(torch.isfinite(h).all())}")
+    out.update(long_t=PREFILL_LONG_T, long_wall_s=wall,
+               long_tokens_per_s=PREFILL_LONG_T / wall,
+               long_peak_mib=peak / 2**20)
+    log(f"[{card}] prefill yi-9b T={PREFILL_LONG_T}, B=1: {wall:.2f} s, "
+        f"{PREFILL_LONG_T / wall:.0f} tokens/s, peak {peak / 2**30:.1f} GiB, "
+        f"flash launches {n}")
+    return out
+
+
+def run_engine(dev, card: str, cfg, params) -> dict:
+    """Phase 8."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    from repro_torch.serve import DecodeEngine, init_cache
+    from repro_torch.serve.decode import decode_logits
+
+    e = ENGINE
+    eng = DecodeEngine(cfg, params, lanes=e["lanes"], page_size=e["page_size"],
+                       pool_pages=e["pool_pages"])
+    rng = np.random.default_rng(SEED)
+    shared = rng.integers(1, cfg.vocab_size, e["shared"])
+    for rid in range(e["requests"]):
+        tail = rng.integers(1, cfg.vocab_size, e["prompt"] - e["shared"])
+        eng.submit(np.concatenate([shared, tail]).astype(np.uint32), e["new"],
+                   rid=rid)
+    pc = eng.pagecache
+    lookups = []                        # (prompt, its answer), in order
+    lookup = pc.lookup_or_allocate
+
+    def recorded(prompt):
+        answer = lookup(prompt)
+        lookups.append((prompt.copy(), answer))
+        return answer
+
+    pc.lookup_or_allocate = recorded
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    n_new = sum(len(r.out) for r in done)
+    out = dict(requests=len(done), steps=eng.steps, wall_s=wall,
+               new_tokens=n_new, tokens_per_s=n_new / wall,
+               step_ms=wall * 1e3 / eng.steps, hit_rate=pc.hit_rate,
+               evictions=int(pc.stats.evictions), regrets=pc.regrets,
+               pages_skipped=sum(r.pages_skipped for r in done),
+               launches=launches)
+    log(f"[{card}] engine yi-9b: {len(done)} requests, {n_new} new tokens "
+        f"in {eng.steps} steps, {wall:.2f} s = {n_new / wall:.1f} new "
+        f"tokens/s ({wall * 1e3 / eng.steps:.1f} ms a step of "
+        f"{e['lanes']} lanes); prefix hit rate {pc.hit_rate:.3f}, pages "
+        f"skipped {out['pages_skipped']}, evictions {out['evictions']}, "
+        f"regrets {pc.regrets}, launches {launches}")
+    if len(done) != e["requests"] or any(len(r.out) != e["new"]
+                                         for r in done):
+        raise AssertionError("engine: not every request finished")
+    if not (pc.hit_rate > 0 and out["evictions"] > 0):
+        raise AssertionError("engine: no prefix hit or no eviction")
+    if min(launches[k] for k in CACHE_KERNELS) <= 0:
+        raise AssertionError(f"engine: a page-cache kernel never launched: "
+                             f"{launches}")
+    out["replay"] = replay_page_cache(dev, pc, lookups, launches)
+
+    # Greedy tokens against the prefill forward over prompt + output; the
+    # bf16 noise is the largest logit difference between that forward and
+    # a one-lane decode replay of the first request's tokens.
+    def prefill_logits(req):
+        seq = np.concatenate([req.prompt.astype(np.int64), req.out[:-1]])
+        tok = torch.from_numpy(seq).to(dev)
+        h = forward(params, cfg, tokens=tok[None])
+        return tok, (h[0, len(req.prompt) - 1:].float()
+                     @ params["unembed"].float().T)[:, :cfg.vocab_size]
+
+    tok, lg = prefill_logits(done[0])
+    cache = init_cache(cfg, 1, len(tok) + 1, dev)
+    dec = [decode_logits(params, cfg, cache, tokens=tok[i:i + 1, None])
+           [0, 0, :cfg.vocab_size] for i in range(len(tok))]
+    noise = float((torch.stack(dec[len(done[0].prompt) - 1:]) - lg)
+                  .abs().max())
+    checked = skipped = 0
+    for req in done:
+        top = torch.topk(prefill_logits(req)[1], 2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        best = top.indices[:, 0].cpu().numpy()
+        sure = margin > 2 * noise
+        bad = [i for i in np.nonzero(sure)[0] if best[i] != req.out[i]]
+        if bad:
+            raise AssertionError(f"engine: request {req.rid}'s greedy tokens "
+                                 f"differ from the prefill forward's argmax "
+                                 f"at positions {bad}")
+        checked += int(sure.sum())
+        skipped += int((~sure).sum())
+    out.update(greedy_checked=checked, greedy_skipped=skipped,
+               logit_noise=noise)
+    log(f"engine: greedy tokens equal the prefill forward's argmax at "
+        f"{checked} of {n_new} positions; {skipped} near-ties (top-two "
+        f"margin <= {2 * noise:.3g}, twice the prefill-vs-decode logit "
+        f"difference) skipped")
+    if not checked:
+        raise AssertionError("engine: no position was checked")
+    return out
+
+
+def replay_page_cache(dev, pc, lookups, launches) -> dict:
+    """Phase 8's page-cache check: the engine's lookup stream again,
+    through a fresh page cache on the card with each launch of its three
+    kernels held against the plain version on the same inputs (at the
+    engine's shapes: one key a lookup on a small table whose sample
+    windows wrap), and through one on the CPU (the plain versions
+    throughout).  Every lookup's answer and the final state must equal
+    the engine's: bit for bit on the card; on the CPU, integers bit-equal
+    and f32 within 16 ulp (CUDA's expf and powf and the CPU's differ by
+    up to 2 ulp a call, and the expert weights compound them)."""
+    from unittest import mock
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import DittoPageCache
+
+    def compare_ints(tag, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_int(f"{tag}[{i}]", g, w)
+
+    def compare_meta(tag, got, want):
+        same_int(f"{tag}.freq", got[0], want[0])
+        same_int(f"{tag}.last_ts", got[1], want[1])
+        close_f32(f"{tag}.ext", got[2], want[2], 2)
+
+    checked = {k: 0 for k in CACHE_KERNELS}
+    patches = []
+    for name, plain, compare in (
+            ("access_probe", ref.access_probe_ref, compare_ints),
+            ("hit_metadata_update", ref.hit_metadata_update_ref,
+             compare_meta),
+            ("ranked_eviction", ref.ranked_eviction_ref, compare_ints)):
+        def held(*args, _name=name, _op=getattr(ops, name + "_op"),
+                 _plain=plain, _compare=compare, **kw):
+            got = _op(*args, **kw)
+            _compare(f"page cache {_name} launch {checked[_name]}", got,
+                     _plain(*args, **kw))
+            checked[_name] += 1
+            return got
+        patches.append(mock.patch.object(ops, name + "_op", held))
+
+    runs = {}
+    for where in (dev, "cpu"):
+        rc = DittoPageCache(pc.cfg.capacity, pc.page_size, device=where)
+        ops.reset_launches()
+        with contextlib.ExitStack() as stack:
+            if where == dev:
+                for patch in patches:
+                    stack.enter_context(patch)
+            answers = [rc.lookup_or_allocate(p) for p, _ in lookups]
+        runs[str(where)] = rc, answers, ops.launches()
+    (card, card_answers, card_launches), (cpu, cpu_answers, _) = (
+        runs[str(dev)], runs["cpu"])
+    if any(checked[k] != launches[k] or card_launches[k] != launches[k]
+           for k in CACHE_KERNELS):
+        raise AssertionError(f"page cache replay: {checked} launches held, "
+                             f"{card_launches} made, the engine made "
+                             f"{launches}")
+    for tag, answers in (("card", card_answers), ("cpu", cpu_answers)):
+        for i, ((_, want), got) in enumerate(zip(lookups, answers)):
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"page cache replay on the {tag}: "
+                                     f"lookup {i} answered {got}, the "
+                                     f"engine's {want}")
+    engine = (pc.state, pc.clients, pc.stats)
+    same_parts("page cache replay on the card", engine,
+               (card.state, card.clients, card.stats), 0)
+    same_parts("page cache replay on the cpu", engine,
+               (cpu.state, cpu.clients, cpu.stats), 16)
+    for rc in (card, cpu):
+        if (rc.hits, rc.lookups, rc.page_of_key) != (
+                pc.hits, pc.lookups, pc.page_of_key):
+            raise AssertionError("page cache replay: hits, lookups or "
+                                 "pages differ from the engine's")
+    log(f"page cache: {len(lookups)} prompts, {pc.lookups} lookups replayed "
+        f"on the card ({checked} kernel launches, each equal to the plain "
+        f"version on its inputs) and on the CPU: the same answers, hits "
+        f"({pc.hits}), evictions, regrets and live keys")
+    return dict(prompts=len(lookups), lookups=pc.lookups, held=checked)
 
 
 def main() -> int:
@@ -589,7 +1194,8 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=6_000_000)
     ap.add_argument("--out", default="")
     ap.add_argument("--profile", type=int, default=0,
-                    help="also trace this many grouped steps per backend")
+                    help="also trace this many grouped steps per backend, "
+                         "one yi-9b prefill and 8 decode steps")
     a = ap.parse_args()
 
     if not (SRC / "repro_torch").is_dir():
@@ -604,12 +1210,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    from repro_torch.kernels import runtime
+    card = runtime.device_line(dev)
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    from repro_torch.kernels import runtime
     t0 = time.perf_counter()
     runtime.lib()
     log(f"built {len(runtime.sources())} CUDA sources in "
@@ -623,14 +1229,28 @@ def main() -> int:
         profile_steps(dev, card, plan, trace, a.profile,
                       Path(a.out).parent if a.out else None)
 
+    check_flash(dev, card, results)
+    cfg, params = yi_params(dev)
+    e2e["prefill"] = run_prefill(dev, card, cfg, params, results)
+    e2e["engine"] = run_engine(dev, card, cfg, params)
+    if a.profile:
+        profile_lm(dev, card, cfg, params, 8,
+                   Path(a.out).parent if a.out else None)
+
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",
         "hit_metadata_update": "src/repro/kernels/metadata_update.py:154",
-        "ranked_eviction": "src/repro/kernels/sampled_eviction.py:215"}
+        "ranked_eviction": "src/repro/kernels/sampled_eviction.py:215",
+        "flash_attention": "src/repro/kernels/flash_attention.py:88"}
+    extra = ("eager_ms", "copy_ms", "copy_bound_ms", "wrapper_ms",
+             "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
+             "row_err_32k", "controls", "layer_row_err", "ms_4k",
+             "bound_ms_4k")
     kernels = []
     for name, r in results.items():
+        by = r.get("bound_by", "bytes")
         log(f"[{card}] {name}: {r['ms'] * 1e3:.1f} us (bound "
-            f"{r['bound_ms'] * 1e3:.2f} us by bytes), plain "
+            f"{r['bound_ms'] * 1e3:.2f} us by {by}), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, launches {r['launches']}")
         kernels.append(dict(
             name=name, route="cuda",
@@ -638,9 +1258,8 @@ def main() -> int:
             replaces=replaces[name], launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by="bytes", library_ms=None, eager_ms=r["eager_ms"],
-            **{k: r[k] for k in ("copy_ms", "copy_bound_ms", "wrapper_ms")
-               if k in r}))
+            bound_by=by, library_ms=r.get("library_ms"),
+            **{k: r[k] for k in extra if k in r}))
     if a.out:
         out = Path(a.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,8 @@
+"""gemma-2b [dense]: GeGLU, head_dim=256, MQA [arXiv:2403.08295]."""
+from repro_torch.models.model import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b", family="dense", n_layers=18, d_model=2048, n_heads=8,
+    n_kv_heads=1, d_ff=16384, vocab_size=256000, head_dim=256,
+    mlp_kind="geglu", tie_embeddings=True, embed_scale=True,
+    source="arXiv:2403.08295; hf:google/gemma-2b")

@@ -1,0 +1,8 @@
+"""yi-9b [dense]: llama-arch GQA [arXiv:2403.04652; hf]."""
+from repro_torch.models.model import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b", family="dense", n_layers=48, d_model=4096, n_heads=32,
+    n_kv_heads=4, d_ff=11008, vocab_size=64000, head_dim=128,
+    mlp_kind="swiglu", rope_theta=10000.0,
+    source="arXiv:2403.04652; hf:01-ai/Yi-9B")

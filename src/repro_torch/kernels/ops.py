@@ -1,4 +1,5 @@
-"""The op wrappers of the three main-path kernels.
+"""The op wrappers of the hand-written kernels: the three cache kernels
+of ``core.access`` and the flash-attention kernel of the LM prefill.
 
 Each wrapper checks its arguments (dtype, device, shape, contiguity) and
 dispatches on the device of the tensors it is given: CPU tensors go to
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.bucket_lookup import access_probe
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.metadata_update import hit_metadata_update
 from repro_torch.kernels.runtime import launch_counts as launches
 from repro_torch.kernels.runtime import reset_counts as reset_launches
@@ -24,7 +26,8 @@ from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS, MAX_SAMPLES,
                                                   ranked_eviction)
 
 __all__ = ["access_probe_op", "hit_metadata_update_op", "ranked_eviction_op",
-           "KERNEL_EXPERTS", "launches", "reset_launches"]
+           "flash_attention_op", "KERNEL_EXPERTS", "launches",
+           "reset_launches"]
 
 I64, F32, BOOL = torch.int64, torch.float32, torch.bool
 
@@ -124,3 +127,35 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     return _dispatch("ranked_eviction", dev, ranked_eviction,
                      ref.ranked_eviction_ref, *args, window=window, k=k,
                      experts=experts, tenant=tenant, tfilt=tfilt)
+
+
+def flash_attention_op(q, k, v):
+    """Causal softmax attention, forward.  q: [B, T, H, D]; k, v:
+    [B, T, H, D], or the GQA view [B, T, Hkv, R, D] with Hkv*R == H that
+    ``models/attention.py::repeat_kv`` makes.  bf16 or f32; returns
+    [B, T, H, D] in q's dtype."""
+    dev = q.device
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q has shape {tuple(q.shape)}, "
+                         "expected [B, T, H, D]")
+    B, T, H, D = q.shape
+    for name, x in (("k", k), ("v", v)):
+        if x.device != dev:
+            raise ValueError(f"flash_attention: {name} is on {x.device}, "
+                             f"not {dev}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {x.dtype}, q is "
+                            f"{q.dtype}")
+        if (x.dim() not in (4, 5) or tuple(x.shape[:2]) != (B, T)
+                or x.shape[2:-1].numel() != H or x.shape[-1] != D):
+            raise ValueError(f"flash_attention: {name} has shape "
+                             f"{tuple(x.shape)} for q {tuple(q.shape)}")
+    if k.shape != v.shape:
+        raise ValueError("flash_attention: k and v differ in shape")
+    if q.dtype not in (torch.bfloat16, F32):
+        raise TypeError(f"flash_attention: q must be bf16 or f32, got "
+                        f"{q.dtype}")
+    if T == 0:
+        raise ValueError("flash_attention: empty sequence")
+    return _dispatch("flash_attention", dev, flash_attention,
+                     ref.flash_attention_ref, q, k, v)

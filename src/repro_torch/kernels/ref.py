@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the three main-path kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-They are the semantics contracts of ``csrc/*.cu`` and have the argument
-contracts of ``repro/kernels/ref.py``: -1 marks a no-op slot, returned
-slots are taken mod C, and every argmin/argmax keeps the first index on
-ties.  Table columns are the cache's own int64 (u32-valued) tensors;
+They are the semantics contracts of ``csrc/*.cu``.  The three cache
+kernels have the argument contracts of ``repro/kernels/ref.py``: -1
+marks a no-op slot, returned slots are taken mod C, and every
+argmin/argmax keeps the first index on ties.  Table columns are the cache's own int64 (u32-valued) tensors;
 windows index them mod C instead of reading a wrap-padded copy.  The op
 wrappers in ``kernels/ops.py`` run these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.
@@ -142,3 +142,36 @@ def ranked_eviction_ref(size, insert_ts, last_ts, freq, offsets, e_choice,
             & must_evict[:, None])
     victims = torch.where(take, ranked_idx, -1)[:, :k]
     return victims, cand
+
+
+def gqa_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] as given, or the GQA view [B, S, Hkv, R, D] that
+    ``models/attention.py::repeat_kv`` makes, as [B, S, Hkv*R, D] (a
+    copy: no strided 4-D view of it exists)."""
+    return x.flatten(2, 3) if x.dim() == 5 else x
+
+
+def flash_attention_ref(q, k, v, *, max_score_bytes: int = 1 << 30):
+    """Causal softmax attention, forward: q [B, T, H, D]; k and v
+    [B, T, H, D] or the GQA view [B, T, Hkv, R, D] (Hkv*R == H).
+
+    Scale ``D**-0.5``; scores, softmax and the weighted sum of values in
+    f32 (bf16 products are exact in f32); output in q's dtype.  Each
+    query row sees its whole causal score row, two-pass.  Rows go in
+    blocks sized so that one block's scores take at most
+    ``max_score_bytes``, so a check at T = 32k needs no [T, T] matrix."""
+    k, v = gqa_heads(k), gqa_heads(v)
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    out = torch.empty_like(q)
+    rows = max(1, min(t, max_score_bytes // (4 * b * h * t)))
+    pos = torch.arange(t, device=q.device)
+    for r0 in range(0, t, rows):
+        r1 = min(t, r0 + rows)
+        s = torch.einsum("bthd,bshd->bhts", q[:, r0:r1].float(),
+                         k[:, :r1].float()) * scale
+        s = s.masked_fill(pos[None, :r1] > pos[r0:r1, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        out[:, r0:r1] = torch.einsum("bhts,bshd->bthd", p,
+                                     v[:, :r1].float()).to(q.dtype)
+    return out

@@ -13,7 +13,9 @@ Each C entry point returns ``cudaGetLastError()``; :func:`check` raises
 if it is non-zero.  Each kernel adds one to its launch counter, an int64
 on the device that the launcher passes by pointer (:func:`counter`), from
 one thread of the launch: a launch replayed from a captured CUDA graph
-is counted as one made from Python is, and nothing else is.  Nothing
+is counted as one made from Python is, and nothing else is.
+:func:`device_line` gives the card's name and power limit, which every
+number taken on the card is printed beside.  Nothing
 here runs at import time: the CPU tests import every module without a
 compiler or a card.
 """
@@ -45,8 +47,11 @@ SIGNATURES = {
                                    P, P],
     "ranked_eviction_launch": [P, P, P, P, P, L, P, P, P, P, I, P, P, P, I, I,
                                I, I, P, P, P, P],
+    "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L,
+                               L, L, L, L, L, P, P],
 }
-KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
+KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction",
+           "flash_attention")
 
 _LIB = None
 _COUNTERS: dict = {}   # device -> int64[len(KERNELS)] launch counts
@@ -150,3 +155,15 @@ def reset_counts() -> None:
     """Set every launch counter to 0."""
     for t in _COUNTERS.values():
         t.zero_()
+
+
+def device_line(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or
+    "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={device.index or 0}"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()

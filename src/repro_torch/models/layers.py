@@ -1,0 +1,58 @@
+"""Shared neural building blocks, as in ``repro/models/layers.py``
+(pure functions on tensors; bf16 activations on the main path).
+
+``logits_and_xent`` and ``layer_norm`` belong to training and to the
+families not yet ported (ROADMAP Queue 1 item 16) and are not here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with the ``1 + scale`` form; the inner math in f32."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embeddings, half-split, f32 angles.  x: [B, T, H, D],
+    positions: [B, T]."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32),
+                     -torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq                 # [B, T, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., d] @ w [d, f] (the JAX layout: no transpose)."""
+    return x @ w
+
+
+def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    g = dense(x, w_gate)
+    act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
+    return dense(act * dense(x, w_up), w_down)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          scale: bool = False) -> torch.Tensor:
+    x = table[tokens]
+    if scale:  # gemma-style sqrt(d) embedding scaling
+        x = x * torch.sqrt(torch.tensor(float(table.shape[-1]),
+                                        dtype=torch.float32)).to(x.dtype)
+    return x

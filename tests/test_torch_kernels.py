@@ -193,8 +193,10 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     ops.reset_launches()
     ops.hit_metadata_update_op(_t([0, 0]), _t([0, 0]), torch.zeros(2, 4),
                                _t([1]), _t([3]), _t([-1]), _t([0]))
+    q = torch.zeros(1, 3, 2, 32)
+    ops.flash_attention_op(q, q, q)
     assert ops.launches() == {"access_probe": 0, "hit_metadata_update": 0,
-                              "ranked_eviction": 0}
+                              "ranked_eviction": 0, "flash_attention": 0}
 
 
 def test_wrappers_check_their_arguments():
@@ -225,7 +227,7 @@ def test_wrappers_check_their_arguments():
 def test_each_cuda_source_carries_its_note_and_entry_point():
     srcs = {p.stem: p.read_text() for p in runtime.sources()}
     assert set(srcs) == {"access_probe", "hit_metadata_update",
-                         "ranked_eviction"}
+                         "ranked_eviction", "flash_attention"}
     for name, text in srcs.items():
         assert f"extern \"C\" int {name}_launch(" in text
         assert "Replaces the Pallas kernel" in text
