@@ -19,6 +19,21 @@ Phases, each of which raises (exit code != 0) on any failure:
    wrap, quota > 1 and tenant filters.  Integer outputs must be
    bit-equal; the f32 ``ext`` column within 2 ulp.  Each kernel and its
    plain version are timed with CUDA events at the main path's shapes.
+   Then the three kernels that only the ``kernels.ops`` entry point
+   reaches: ``bucket_lookup``, ``sampled_eviction`` (f32 columns padded
+   at the tail by W = 20 and 128 with empty slots, all five experts, the
+   clock as a number and on the card, a window wholly in the empty
+   tail) and ``metadata_update`` (f32 freq and last_ts; duplicate, -1
+   and past-the-table slots; non-integer deltas) against their plain
+   versions at B = 13, 64 and 2048: integers and both f32 columns
+   bit-equal, and two ``metadata_update`` launches the same bits.  The
+   entry point's path, counted: 8 Get batches of 2048 keys, each
+   probed with ``bucket_lookup_op``, its hits' freq and last_ts updated
+   with ``metadata_update_op`` at the batch's clock, and a victim
+   sampled for every op with ``sampled_eviction_op`` from the updated
+   columns; the same batches through the plain versions must give the
+   same bits.  Each of the three is timed at B = 2048, and
+   ``metadata_update``'s fresh-column copy on its own.
 3. End to end, grouped: YCSB-A (50% SET, zipf 0.99) over 10M keys, 64
    client lanes, a 2,097,152-slot cache (capacity 1,048,576 objects),
    planned once at batch 32, through ``execute()`` with the fused and
@@ -81,8 +96,9 @@ Phases, each of which raises (exit code != 0) on any failure:
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
-counters are set to 0 just before each run of a main path (the cache's,
-the prefill forward's, the engine's) and read just after it.
+counters are set to 0 just before each run of a main path (the
+``kernels.ops`` entry point's, the cache's, the prefill forward's, the
+engine's) and read just after it.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -111,6 +127,10 @@ SEQ_ROUNDS = 1_000
 ADAPTIVE_ROWS = 2_000
 EXPERTS_ALL = ("lru", "lfu", "fifo", "size", "hyperbolic")
 CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
+# The kernels that only the kernels.ops entry point reaches, and the Get
+# batches of 2048 keys its counted path drives through them.
+ENTRY_KERNELS = ("sampled_eviction", "bucket_lookup", "metadata_update")
+ENTRY_STEPS = 8
 # Phase 6: (arch, B, T, H, D, H / Hkv) of the two attention shapes.
 FLASH_SHAPES = (("yi-9b", 1, 4096, 32, 128, 8),
                 ("smollm-135m", 4, 2048, 9, 64, 3))
@@ -390,12 +410,229 @@ def check_kernels(dev, results: dict) -> None:
     log(f"hit_metadata_update's fresh-column copy: {r['copy_ms'] * 1e3:.2f} "
         f"us, bound {r['copy_bound_ms'] * 1e3:.2f} us; copy and passes "
         f"together {r['wrapper_ms'] * 1e3:.2f} us")
+    check_entry_point(dev, rng, t, dict(ins=ins, last=last, freq=freq), live,
+                      probe_keys, results)
+
+
+def same_bits(name, got, want) -> None:
+    """Two f32 tensors equal bit for bit."""
+    import torch
+    same_int(name, got.view(torch.int32), want.view(torch.int32))
+
+
+def padded(cols, W: int) -> tuple:
+    """f32 copies of the table columns with W empty slots at the tail, the
+    form the JAX package's ``sampled_eviction`` op takes."""
+    import torch
+    return tuple(torch.cat([c.float(), c.new_zeros(W, dtype=torch.float32)])
+                 for c in cols)
+
+
+def check_entry_point(dev, rng, t, meta, live, probe_keys,
+                      results: dict) -> None:
+    """Phase 2, continued: the three kernels that only the ``kernels.ops``
+    entry point reaches, against their plain versions at B = 13, 64 and
+    2048 on the same table; then the entry point's path, counted; then
+    the kernels timed at B = 2048."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    n = t["size"].shape[0]
+    cols = (t["size"], meta["ins"], meta["last"], meta["freq"])
+    freq_f, last_f = meta["freq"].float(), meta["last"].float()
+    on_card = lambda c: torch.tensor(c, dtype=torch.float32, device=dev)
+    shapes = {}
+    for B in (13, 64, 2048):
+        keys = probe_keys(B)
+        args, kw = (t["key"], t["size"], keys), dict(assoc=ASSOC)
+        got = ops.bucket_lookup_op(*args, **kw)
+        want = ref.bucket_lookup_ref(*args, **kw)
+        same_int(f"bucket_lookup[B={B}].found", got[0], want[0])
+        same_int(f"bucket_lookup[B={B}].slot", got[1], want[1])
+        if not bool(got[0].any()):
+            raise AssertionError(f"bucket_lookup[B={B}]: no key found")
+        shapes[("bucket_lookup", B)] = (args, kw)
+
+        # sampled_eviction: all five experts, W = 20 and 128, the clock as
+        # a number and on the card, the last op's window in the empty tail.
+        for W in (128, 20):
+            offs = rng.integers(0, n, B)
+            offs[-1] = n
+            sargs = padded(cols, W) + (torch.from_numpy(offs).to(dev),
+                                       torch.from_numpy(rng.integers(
+                                           0, len(EXPERTS_ALL), B)).to(dev))
+            kw = dict(window=W, k=5, experts=EXPERTS_ALL)
+            for clock in (1_000_016.0, on_card(1_000_031.0)):
+                got = ops.sampled_eviction_op(*sargs, clock, **kw)
+                want = ref.sampled_eviction_ref(*sargs, clock, **kw)
+                tag = f"sampled_eviction[B={B},W={W}]"
+                same_int(f"{tag}.victim", got[0], want[0])
+                same_int(f"{tag}.cand", got[1], want[1])
+                if int(got[0][-1]) != -1 or bool((got[1][-1] != -1).any()):
+                    raise AssertionError(f"{tag}: a window in the empty tail "
+                                         "gave a victim")
+                if int((got[0] >= 0).sum()) < B // 2:
+                    raise AssertionError(f"{tag}: few victims")
+            shapes[("sampled_eviction", B)] = (sargs + (clock,), kw)
+
+        # metadata_update: duplicates, -1 no-ops, a slot past C, non-integer
+        # deltas; two launches must give the same bits.
+        slots = rng.choice(live, B).astype(np.int64)
+        slots[rng.random(B) < 0.3] = -1
+        slots[1:5] = live[0]
+        slots[-1] = n + 7
+        margs = (freq_f, last_f, torch.from_numpy(slots).to(dev),
+                 torch.from_numpy(rng.random(B, np.float32) * 10).to(dev),
+                 on_card(1_000_016.5))
+        got = ops.metadata_update_op(*margs)
+        again = ops.metadata_update_op(*margs[:4], 1_000_016.5)
+        want = ref.metadata_update_ref(*margs)
+        for i, name in enumerate(("freq", "last_ts")):
+            same_bits(f"metadata_update[B={B}].{name}", got[i], want[i])
+            same_bits(f"metadata_update[B={B}].{name} (second launch)",
+                      again[i], got[i])
+        if bool((got[0] == freq_f).all()):
+            raise AssertionError("metadata_update changed nothing")
+        shapes[("metadata_update", B)] = (margs, {})
+    log("the entry point's three kernels agree with their plain versions at "
+        "B = 13, 64 and 2048 (bit-equal; metadata_update the same bits on "
+        "two launches)")
+
+    # The entry point's path: ENTRY_STEPS Get batches of 2048 keys, each
+    # probed, its hits' frequency and timestamp updated at the step's clock
+    # (FC-cache flushes of one access each), and a victim sampled for each
+    # op from the updated columns.  Counted, then replayed through the plain
+    # versions from the same start, which must give the same bits.
+    B, W = 2048, 20
+    steps = [(probe_keys(B), torch.from_numpy(rng.integers(0, n, B)).to(dev),
+              torch.from_numpy(rng.integers(0, 2, B)).to(dev),
+              float(1_000_100 + i)) for i in range(ENTRY_STEPS)]
+    ones = torch.ones(B, dtype=torch.float32, device=dev)
+
+    def drive(lookup, update, evict):
+        f, l, outs = freq_f, last_f, []
+        for keys, offs, ech, clock in steps:
+            found, slot = lookup(t["key"], t["size"], keys, assoc=ASSOC)
+            f, l = update(f, l, torch.where(found, slot, -1), ones, clock)
+            victim, cand = evict(*padded((t["size"], meta["ins"], l, f), W),
+                                 offs, ech, clock, window=W, k=5,
+                                 experts=("lru", "lfu"))
+            outs += [found, slot, victim, cand]
+        return outs, f, l
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs, f, l = drive(ops.bucket_lookup_op, ops.metadata_update_op,
+                       ops.sampled_eviction_op)
+    counts = ops.launches()
+    plain, pf, pl = drive(ref.bucket_lookup_ref, ref.metadata_update_ref,
+                          ref.sampled_eviction_ref)
+    for i, (g, w) in enumerate(zip(outs, plain)):
+        same_int(f"entry point step {i // 4} output {i % 4}", g, w)
+    same_bits("entry point freq", f, pf)
+    same_bits("entry point last_ts", l, pl)
+    hits = sum(int(o.sum()) for o in outs[0::4])
+    if not 0 < hits < ENTRY_STEPS * B:
+        raise AssertionError(f"entry point: {hits} hits")
+    for name in ENTRY_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"entry point: {name} never launched")
+        results.setdefault(name, {})["launches"] = counts[name]
+    log(f"entry point: {ENTRY_STEPS} batches of {B} keys, {hits} hits, "
+        f"launches { {k: counts[k] for k in ENTRY_KERNELS} }; equal to the "
+        f"plain versions' run bit for bit")
+
+    # Timing at B = 2048.  metadata_update's plain version syncs the host
+    # once (the most entries on one slot), so it is timed from Python.
+    torch.cuda.synchronize()
+    from repro_torch.kernels.bucket_lookup import bucket_lookup
+    from repro_torch.kernels.metadata_update import (metadata_update,
+                                                     metadata_update_into)
+    from repro_torch.kernels.sampled_eviction import sampled_eviction
+    margs, _ = shapes[("metadata_update", 2048)]
+    fresh = tuple(a.clone() for a in margs[:2])
+    kern = {"sampled_eviction": (sampled_eviction, ref.sampled_eviction_ref),
+            "bucket_lookup": (bucket_lookup, ref.bucket_lookup_ref),
+            "metadata_update": (lambda *a: metadata_update_into(*a, *fresh),
+                                ref.metadata_update_ref)}
+    for name, (k_fn, p_fn) in kern.items():
+        args, kw = shapes[(name, 2048)]
+        r = results[name]
+        r["ms"] = time_ms(lambda: k_fn(*args, **kw))
+        timer = eager_ms if name == "metadata_update" else time_ms
+        r["plain_ms"] = timer(lambda: p_fn(*args, **kw))
+        r["eager_ms"] = eager_ms(lambda: k_fn(*args, **kw))
+        r["bytes"] = bound_bytes(name, args, kw)
+        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        r["max_abs_err"] = 0.0
+        log(f"{name} at B=2048: {r['ms'] * 1e3:.2f} us a call on the "
+            f"device ({r['eager_ms'] * 1e3:.2f} us launched from Python), "
+            f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes']} bytes)")
+    # The fresh-output copy of freq and last_ts: each read and written once.
+    r = results["metadata_update"]
+    r["copy_ms"] = time_ms(lambda: tuple(a.clone() for a in margs[:2]))
+    r["copy_bound_ms"] = (2 * sum(a.numel() * a.element_size()
+                                  for a in margs[:2]) / HBM_BYTES_PER_S * 1e3)
+    r["wrapper_ms"] = time_ms(lambda: metadata_update(*margs))
+    log(f"metadata_update's fresh-column copy: {r['copy_ms'] * 1e3:.2f} us, "
+        f"bound {r['copy_bound_ms'] * 1e3:.2f} us; copy and passes together "
+        f"{r['wrapper_ms'] * 1e3:.2f} us")
+    # The passes where slots repeat most: every slot twice, B / 2 entries
+    # apart (each claimer scans half the batch), and all on one slot (one
+    # claimer adds B deltas in order).  Bit-equal to the plain version.
+    for tag, s in (("pairs", np.tile(rng.choice(live, B // 2), 2)),
+                   ("one_slot", np.full(B, live[0]))):
+        args = (margs[0], margs[1], torch.from_numpy(s).to(dev)) + margs[3:]
+        got, want = metadata_update(*args), ref.metadata_update_ref(*args)
+        for i, name in enumerate(("freq", "last_ts")):
+            same_bits(f"metadata_update[{tag}].{name}", got[i], want[i])
+        r[f"ms_{tag}"] = time_ms(lambda: metadata_update_into(*args, *fresh))
+    log(f"metadata_update's passes with every slot twice, B / 2 apart: "
+        f"{r['ms_pairs'] * 1e3:.2f} us; with all {B} on one slot: "
+        f"{r['ms_one_slot'] * 1e3:.2f} us (bit-equal to the plain version)")
 
 
 def bound_bytes(name: str, args, kw) -> int:
     """Bytes the function must move on these inputs: each input byte it
     needs read once, each output byte written once (int64 storage)."""
     import torch
+    if name == "bucket_lookup":
+        # The probed buckets' key and size words, the keys in, (found,
+        # slot) out.
+        tkey, tsize, keys = args
+        from repro_torch.core.hashing import bucket_of, hash_key
+        buckets = torch.unique(bucket_of(hash_key(keys),
+                                         tkey.shape[0] // kw["assoc"]))
+        B = keys.shape[0]
+        return int(buckets.numel() * kw["assoc"] * 2 * 8 + B * 8
+                   + B * (1 + 8))
+    if name == "sampled_eviction":
+        # f32 sizes up to each op's K-th live slot, three more columns at
+        # each sampled slot, offsets, choices and the clock in; the victim
+        # and E candidates out.
+        size, ins, last, freq, offs, ech, clock = args
+        W, K, E = kw["window"], kw["k"], len(kw["experts"])
+        N, B = size.shape[0], offs.shape[0]
+        idx = offs[:, None] + torch.arange(W, device=offs.device)[None, :]
+        inside = (idx >= 0) & (idx < N)
+        s = torch.where(inside, size[idx.clamp(0, N - 1)], 0.0)
+        live = (s > 0) & (s < 255)
+        cum = torch.cumsum(live.to(torch.int64), dim=1)
+        n_scan = torch.unique(idx[inside & ((cum - live.to(torch.int64))
+                                            < K)]).numel()
+        n_samp = torch.unique(idx[live & (cum <= K)]).numel()
+        return int(n_scan * 4 + n_samp * 3 * 4 + B * (8 + 8) + 4
+                   + B * (1 + E) * 8)
+    if name == "metadata_update":
+        # The passes alone: slots and deltas in; at each distinct touched
+        # slot freq and last_ts in and out.
+        freq, last, slots, deltas, _ = args
+        ok = (slots >= 0) & (slots < freq.shape[0])
+        touched = torch.unique(slots[ok]).numel()
+        return int(slots.numel() * 8 + deltas.numel() * 4 + 4
+                   + touched * (4 + 4) * 2)
     if name == "access_probe":
         tkey, tsize, thash, tptr, keys, _ = args
         assoc = kw["assoc"]
@@ -1241,11 +1478,14 @@ def main() -> int:
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",
         "hit_metadata_update": "src/repro/kernels/metadata_update.py:154",
         "ranked_eviction": "src/repro/kernels/sampled_eviction.py:215",
-        "flash_attention": "src/repro/kernels/flash_attention.py:88"}
+        "flash_attention": "src/repro/kernels/flash_attention.py:88",
+        "sampled_eviction": "src/repro/kernels/sampled_eviction.py:251",
+        "bucket_lookup": "src/repro/kernels/bucket_lookup.py:98",
+        "metadata_update": "src/repro/kernels/metadata_update.py:184"}
     extra = ("eager_ms", "copy_ms", "copy_bound_ms", "wrapper_ms",
              "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
              "row_err_32k", "controls", "layer_row_err", "ms_4k",
-             "bound_ms_4k")
+             "bound_ms_4k", "ms_pairs", "ms_one_slot")
     kernels = []
     for name, r in results.items():
         by = r.get("bound_by", "bytes")

@@ -1,8 +1,11 @@
-"""Launcher of the ``access_probe`` CUDA kernel (``csrc/access_probe.cu``):
-the Get-path bucket probe with the embedded-history match.
+"""Launchers of the bucket-probe CUDA kernels: ``access_probe``
+(``csrc/access_probe.cu``), the Get-path probe with the embedded-history
+match, and ``bucket_lookup`` (``csrc/bucket_lookup.cu``), the probe
+alone.
 
-Takes CUDA tensors already checked by ``kernels/ops.py::access_probe_op``;
-the plain version is ``kernels/ref.py::access_probe_ref``.
+Each takes CUDA tensors already checked by its wrapper in
+``kernels/ops.py``; the plain versions are ``kernels/ref.py::
+access_probe_ref`` and ``bucket_lookup_ref``.
 """
 
 from __future__ import annotations
@@ -31,3 +34,18 @@ def access_probe(table_key, table_size, table_hash, table_ptr, keys,
         torch.cuda.current_stream(dev).cuda_stream)
     runtime.check(err, "access_probe")
     return found, slot, hfound, hslot
+
+
+def bucket_lookup(table_key, table_size, keys, *, assoc: int):
+    """Returns (found bool[B], slot i64[B] (-1 miss))."""
+    B = keys.shape[0]
+    dev = keys.device
+    found = torch.empty(B, dtype=torch.bool, device=dev)
+    slot = torch.empty(B, dtype=torch.int64, device=dev)
+    err = runtime.lib().bucket_lookup_launch(
+        table_key.data_ptr(), table_size.data_ptr(), keys.data_ptr(), B,
+        assoc, table_key.shape[0] // assoc, found.data_ptr(), slot.data_ptr(),
+        runtime.counter("bucket_lookup", dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    runtime.check(err, "bucket_lookup")
+    return found, slot

@@ -18,17 +18,9 @@
 // the step issues no host sync.  Thread 0 of block 0 adds one to the
 // launch counter, so a launch replayed from a CUDA graph is counted too.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
-  x += 0x9E3779B9u;
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
 
 __global__ void access_probe_kernel(
     const int64_t* __restrict__ tkey, const int64_t* __restrict__ tsize,

@@ -26,39 +26,13 @@
 // Thread 0 of block 0 adds one to the launch counter, so a launch
 // replayed from a CUDA graph is counted too.
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;
-
-// Expert codes, as kernels/sampled_eviction.py::KERNEL_EXPERTS orders them.
-__device__ __forceinline__ float priority(int code, float sz, float ins,
-                                          float last, float fr, float clock) {
-  switch (code) {
-    case 0: return last;                                    // lru
-    case 1: return fr;                                      // lfu
-    case 2: return ins;                                     // fifo
-    case 3: return -sz;                                     // size
-    default:                                                // hyperbolic
-      return __fdiv_rn(fr, fmaxf(__fsub_rn(clock, ins), 1.0f));
-  }
-}
-
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const float ov = __shfl_xor_sync(FULL, v, d);
-    const int oi = __shfl_xor_sync(FULL, i, d);
-    if (ov < v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(WARPS * 32) ranked_eviction_kernel(
     const int64_t* __restrict__ size, const int64_t* __restrict__ ins_ts,

@@ -1,5 +1,8 @@
 """The op wrappers of the hand-written kernels: the three cache kernels
-of ``core.access`` and the flash-attention kernel of the LM prefill.
+of ``core.access``, the flash-attention kernel of the LM prefill, and the
+three cache kernels that only this entry point reaches
+(``sampled_eviction_op``, ``bucket_lookup_op``, ``metadata_update_op``,
+the JAX package's ``repro.kernels.ops`` forms).
 
 Each wrapper checks its arguments (dtype, device, shape, contiguity) and
 dispatches on the device of the tensors it is given: CPU tensors go to
@@ -14,19 +17,25 @@ kernels.  The plain versions count nothing.
 
 from __future__ import annotations
 
+import numbers
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.bucket_lookup import access_probe
+from repro_torch.kernels.bucket_lookup import access_probe, bucket_lookup
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.metadata_update import hit_metadata_update
+from repro_torch.kernels.metadata_update import (hit_metadata_update,
+                                                 metadata_update)
 from repro_torch.kernels.runtime import launch_counts as launches
 from repro_torch.kernels.runtime import reset_counts as reset_launches
 from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS, MAX_SAMPLES,
-                                                  ranked_eviction)
+                                                  ranked_eviction,
+                                                  sampled_eviction)
 
 __all__ = ["access_probe_op", "hit_metadata_update_op", "ranked_eviction_op",
-           "flash_attention_op", "KERNEL_EXPERTS", "launches",
+           "flash_attention_op", "sampled_eviction_op", "bucket_lookup_op",
+           "metadata_update_op", "KERNEL_EXPERTS", "launches",
            "reset_launches"]
 
 I64, F32, BOOL = torch.int64, torch.float32, torch.bool
@@ -45,6 +54,26 @@ def _check(op: str, device, **tensors) -> None:
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def _clock(op: str, clock, device):
+    """A scalar clock: a 0-d f32 tensor on ``device`` as it is, a number
+    rounded to f32 (as ``jnp.asarray(clock, jnp.float32)`` rounds it)."""
+    if isinstance(clock, torch.Tensor):
+        _check(op, device, clock=(clock, F32, ()))
+        return clock
+    if not isinstance(clock, numbers.Real):
+        raise TypeError(f"{op}: clock must be a number or a 0-d tensor, got "
+                        f"{type(clock).__name__}")
+    return float(np.float32(clock))
+
+
+def _experts(op: str, experts) -> tuple:
+    experts = tuple(experts)
+    bad = [e for e in experts if e not in KERNEL_EXPERTS]
+    if bad:
+        raise ValueError(f"{op} supports {KERNEL_EXPERTS}; got {bad}")
+    return experts
 
 
 def _dispatch(op: str, device, kernel, plain, *args, **kw):
@@ -101,11 +130,7 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     per-expert candidates i64[B, E]."""
     dev = offsets.device
     n, B = size.shape[0], offsets.shape[0]
-    experts = tuple(experts)
-    bad = [e for e in experts if e not in KERNEL_EXPERTS]
-    if bad:
-        raise ValueError(f"ranked_eviction supports {KERNEL_EXPERTS}; "
-                         f"got {bad}")
+    experts = _experts("ranked_eviction", experts)
     if not 0 < window <= n:
         raise ValueError(f"ranked_eviction: window={window} for {n} slots")
     if not 0 < k <= min(window, MAX_SAMPLES):
@@ -127,6 +152,73 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     return _dispatch("ranked_eviction", dev, ranked_eviction,
                      ref.ranked_eviction_ref, *args, window=window, k=k,
                      experts=experts, tenant=tenant, tfilt=tfilt)
+
+
+def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
+                        clock, *, window: int = 20, k: int = 5,
+                        experts=("lru", "lfu")):
+    """Single-victim sampled eviction at one scalar clock (a number or a
+    0-d f32 tensor).  The columns are f32[C + window], padded at the tail
+    with empty slots by the caller, so op b's window is the positions
+    ``offsets[b] + j``, j < window, never taken mod C (a position outside
+    the columns reads as an empty slot).  Returns victim i64[B] (-1 where
+    the sample is empty or ``e_choice`` is outside [0, E)) and cand
+    i64[B, E] (-1 where the sample is empty), as window positions.  Any
+    B: the JAX op's ``block_b`` tiling, and its B % 8 == 0, are gone."""
+    dev = offsets.device
+    n, B = size.shape[0], offsets.shape[0]
+    experts = _experts("sampled_eviction", experts)
+    if not 0 < window <= n:
+        raise ValueError(f"sampled_eviction: window={window} for {n} "
+                         "padded slots")
+    if not 0 < k <= MAX_SAMPLES:
+        raise ValueError(f"sampled_eviction: k={k} must be in [1, "
+                         f"{MAX_SAMPLES}]")
+    _check("sampled_eviction", dev, size=(size, F32, (n,)),
+           insert_ts=(insert_ts, F32, (n,)), last_ts=(last_ts, F32, (n,)),
+           freq=(freq, F32, (n,)), offsets=(offsets, I64, (B,)),
+           e_choice=(e_choice, I64, (B,)))
+    args = (size, insert_ts, last_ts, freq, offsets, e_choice,
+            _clock("sampled_eviction", clock, dev))
+    return _dispatch("sampled_eviction", dev, sampled_eviction,
+                     ref.sampled_eviction_ref, *args, window=window, k=k,
+                     experts=experts)
+
+
+def bucket_lookup_op(table_key, table_size, keys, *, assoc: int = 8):
+    """Bucket match alone for u32 keys [B] over u32 key and size columns
+    [C] (int64 tensors): returns (found bool[B], slot i64[B], -1 on a
+    miss).  The table has floor(C / assoc) buckets.  Any B: the JAX op's
+    ``block_b`` tiling is gone."""
+    dev = keys.device
+    n, B = table_key.shape[0], keys.shape[0]
+    if not 0 < assoc <= n:
+        raise ValueError(f"bucket_lookup: assoc={assoc} for {n} slots")
+    _check("bucket_lookup", dev, table_key=(table_key, I64, (n,)),
+           table_size=(table_size, I64, (n,)), keys=(keys, I64, (B,)))
+    return _dispatch("bucket_lookup", dev, bucket_lookup,
+                     ref.bucket_lookup_ref, table_key, table_size, keys,
+                     assoc=assoc)
+
+
+def metadata_update_op(freq, last_ts, slots, deltas, clock):
+    """Combining FC-cache flush into fresh (freq, last_ts) f32[C]: at
+    every slot s in [0, C) that ``slots`` i64[B] names, ``freq[s] +=``
+    its deltas f32[B], added in batch order, and ``last_ts[s] =
+    max(last_ts[s], clock)`` (a number or a 0-d f32 tensor); any other
+    slot (-1) is a no-op.  Any C and B: the JAX op's ``block_c`` tiling,
+    and its C % 512 == 0, are gone.  The JAX kernel sums a slot's deltas
+    before it adds them, so on non-integer deltas the two may differ in
+    the last bits."""
+    dev = freq.device
+    n, B = freq.shape[0], slots.shape[0]
+    _check("metadata_update", dev, freq=(freq, F32, (n,)),
+           last_ts=(last_ts, F32, (n,)), slots=(slots, I64, (B,)),
+           deltas=(deltas, F32, (B,)))
+    args = (freq, last_ts, slots, deltas,
+            _clock("metadata_update", clock, dev))
+    return _dispatch("metadata_update", dev, metadata_update,
+                     ref.metadata_update_ref, *args)
 
 
 def flash_attention_op(q, k, v):

@@ -1,10 +1,14 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They are the semantics contracts of ``csrc/*.cu``.  The three cache
-kernels have the argument contracts of ``repro/kernels/ref.py``: -1
-marks a no-op slot, returned slots are taken mod C, and every
-argmin/argmax keeps the first index on ties.  Table columns are the cache's own int64 (u32-valued) tensors;
-windows index them mod C instead of reading a wrap-padded copy.  The op
+They are the semantics contracts of ``csrc/*.cu``.  The cache kernels
+have the argument contracts of ``repro/kernels/ref.py``: -1 marks a
+no-op slot and every argmin/argmax keeps the first index on ties.  The
+three kernels of ``core.access`` take the cache's own int64 (u32-valued)
+table columns; their windows index them mod C instead of reading a
+wrap-padded copy, and their returned slots are taken mod C.  The three
+kernels of the ``kernels.ops`` entry point alone (``sampled_eviction``,
+``bucket_lookup``, ``metadata_update``) keep the JAX ops' forms: f32
+columns, windows over a tail-padded copy, slots not taken mod C.  The op
 wrappers in ``kernels/ops.py`` run these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 """
@@ -40,12 +44,11 @@ def priorities_ref(size, insert_ts, last_ts, freq, clock, experts):
     return torch.stack(out, dim=-1)
 
 
-def access_probe_ref(table_key, table_size, table_hash, table_ptr, keys,
-                     hist_ctr, *, assoc: int, history_len: int):
-    """Bucket match + embedded-history match.
-
-    Returns (found bool[B], slot i64[B] (-1 miss), hist_found bool[B],
-    hist_slot i64[B] (bucket base where nothing matches))."""
+def _bucket_match(table_key, table_size, keys, assoc: int):
+    """The probe's first half: each key's hash, its bucket's slots
+    [B, assoc] and their sizes, and the first live slot holding the key
+    (found bool[B], slot i64[B], -1 on a miss).  n_buckets is
+    floor(C / assoc)."""
     n_buckets = table_key.shape[0] // assoc
     kh = hash_key(keys)
     slots = (bucket_of(kh, n_buckets)[:, None] * assoc
@@ -56,13 +59,31 @@ def access_probe_ref(table_key, table_size, table_hash, table_ptr, keys,
     found = match.any(dim=1)
     slot = torch.gather(slots, 1, match.to(torch.int32).argmax(
         dim=1, keepdim=True))[:, 0]
+    return kh, slots, sz, found, torch.where(found, slot, -1)
+
+
+def bucket_lookup_ref(table_key, table_size, keys, *, assoc: int):
+    """Bucket match alone.  Returns (found bool[B], slot i64[B] (-1
+    miss))."""
+    _, _, _, found, slot = _bucket_match(table_key, table_size, keys, assoc)
+    return found, slot
+
+
+def access_probe_ref(table_key, table_size, table_hash, table_ptr, keys,
+                     hist_ctr, *, assoc: int, history_len: int):
+    """Bucket match + embedded-history match.
+
+    Returns (found bool[B], slot i64[B] (-1 miss), hist_found bool[B],
+    hist_slot i64[B] (bucket base where nothing matches))."""
+    kh, slots, sz, found, slot = _bucket_match(table_key, table_size, keys,
+                                               assoc)
     age = (hist_ctr - table_ptr[slots]) & M32
     h_match = (sz == 255) & (age < history_len) & (table_hash[slots]
                                                   == kh[:, None])
     hist_found = h_match.any(dim=1) & ~found
     hslot = torch.gather(slots, 1, h_match.to(torch.int32).argmax(
         dim=1, keepdim=True))[:, 0]
-    return found, torch.where(found, slot, -1), hist_found, hslot
+    return found, slot, hist_found, hslot
 
 
 def hit_metadata_update_ref(freq, last_ts, ext, hit_slots, hit_ts,
@@ -91,6 +112,70 @@ def hit_metadata_update_ref(freq, last_ts, ext, hit_slots, hit_ts,
     new_ext = torch.stack([ts0, ts1, crf, gap], dim=-1)
     ext2 = torch.where(touched[:, None], new_ext, ext)
     return freq2, last2, ext2
+
+
+def metadata_update_ref(freq, last_ts, slots, deltas, clock):
+    """Combining metadata update into fresh f32 tensors: at every slot s
+    named by an entry with 0 <= s < C, ``freq[s] += Σ deltas`` and
+    ``last_ts[s] = max(last_ts[s], clock)`` (also where the delta is 0);
+    other entries (-1 marks a no-op) change nothing.
+
+    A slot's deltas are added one by one in batch order, ``freq + d_1 +
+    d_2 + ...``, on any device: the kernel adds in the same order, so the
+    two agree bit for bit on any deltas.  The loop runs once per rank of
+    an entry among its slot's entries (a host sync reads the most
+    entries on one slot)."""
+    n = freq.shape[0]
+    clock = torch.as_tensor(clock, dtype=torch.float32, device=freq.device)
+    pos = torch.nonzero((slots >= 0) & (slots < n))[:, 0]
+    s, order = torch.sort(slots[pos], stable=True)
+    d = deltas[pos][order]
+    # Rank of each entry among its slot's entries, in batch order.
+    i = torch.arange(s.shape[0], device=s.device)
+    head = torch.ones_like(s, dtype=torch.bool)
+    head[1:] = s[1:] != s[:-1]
+    rank = i - torch.cummax(torch.where(head, i, 0), dim=0).values
+    freq2 = freq.clone()
+    for r in range(int(rank.max()) + 1 if s.numel() else 0):
+        at = rank == r
+        freq2[s[at]] = freq2[s[at]] + d[at]
+    last2 = last_ts.clone()
+    last2[s] = torch.maximum(last_ts[s], clock)
+    return freq2, last2
+
+
+def sampled_eviction_ref(size, insert_ts, last_ts, freq, offsets, e_choice,
+                         clock, *, window: int, k: int, experts):
+    """Single-victim sampled eviction at one scalar clock.
+
+    The columns are f32[N], N = C + window, padded at the tail with empty
+    slots by the caller; op b's window is positions ``offsets[b] + j``,
+    j < window (not mod C; a position outside [0, N) reads as an empty
+    slot).  Its sample is the first ``k`` live slots (0 < size < 255);
+    every expert's argmin over the sample, at ``clock``, is its
+    candidate, -1 for every expert when the sample is empty.  The victim
+    is the candidate of expert ``e_choice[b]``, -1 for a choice outside
+    [0, E).
+
+    Returns victim i64[B], cand i64[B, E] (window positions)."""
+    N = size.shape[0]
+    E = len(experts)
+    dev = offsets.device
+    clock = torch.as_tensor(clock, dtype=torch.float32, device=dev)
+    idx = offsets[:, None] + torch.arange(window, device=dev)[None, :]
+    inside = (idx >= 0) & (idx < N)
+    at = idx.clamp(0, max(N - 1, 0))
+    s = torch.where(inside, size[at], 0.0)
+    live = (s > 0) & (s < 255)
+    in_sample = live & (torch.cumsum(live.to(torch.int64), dim=1) <= k)
+    pr = priorities_ref(s, insert_ts[at], last_ts[at], freq[at], clock,
+                        experts)                                 # [B, W, E]
+    pr = torch.where(in_sample[..., None], pr, _INF)
+    cand = torch.gather(idx, 1, pr.argmin(dim=1))                 # [B, E]
+    cand = torch.where(in_sample.any(dim=1, keepdim=True), cand, -1)
+    ok = (e_choice >= 0) & (e_choice < E)
+    victim = torch.gather(cand, 1, e_choice.clamp(0, E - 1)[:, None])[:, 0]
+    return torch.where(ok, victim, -1), cand
 
 
 def ranked_eviction_ref(size, insert_ts, last_ts, freq, offsets, e_choice,

@@ -4,8 +4,9 @@
 -O3`` (one ``nvcc`` process per source, all started together) and link
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, into ``_build/`` beside this module (listed
-in ``.gitignore``), keyed by a hash of the sources and flags, so an
-unchanged checkout builds once.  No ``--use_fast_math``: it would turn
+in ``.gitignore``), keyed by a hash of the sources, the shared device
+code they include (``csrc/*.cuh``) and the flags, so an unchanged
+checkout builds once.  No ``--use_fast_math``: it would turn
 ``exp2f`` and division into approximations, and the f32 priorities must
 round as the plain PyTorch versions' do.
 
@@ -40,6 +41,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_int64
+F = ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as void*).
 SIGNATURES = {
     "access_probe_launch": [P, P, P, P, P, P, I, I, L, L, P, P, P, P, P, P],
@@ -49,9 +51,14 @@ SIGNATURES = {
                                I, I, P, P, P, P],
     "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L,
                                L, L, L, L, L, P, P],
+    "sampled_eviction_launch": [P, P, P, P, L, P, P, P, F, P, I, I, I, I, P, P,
+                                P, P],
+    "bucket_lookup_launch": [P, P, P, I, I, L, P, P, P, P],
+    "metadata_update_launch": [P, P, I, L, P, P, P, F, P, P, P, P, P, P],
 }
 KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction",
-           "flash_attention")
+           "flash_attention", "sampled_eviction", "bucket_lookup",
+           "metadata_update")
 
 _LIB = None
 _COUNTERS: dict = {}   # device -> int64[len(KERNELS)] launch counts
@@ -74,7 +81,7 @@ def sources() -> list:
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

@@ -1,9 +1,12 @@
-"""Launcher of the ``ranked_eviction`` CUDA kernel
-(``csrc/ranked_eviction.cu``): the sampled, expert-ranked eviction
-decision, one warp per op.
+"""Launchers of the sampled-eviction CUDA kernels, one warp per op:
+``ranked_eviction`` (``csrc/ranked_eviction.cu``), the quota-ranked
+decision of ``core.access``, and ``sampled_eviction``
+(``csrc/sampled_eviction.cu``), the single-victim decision at one
+clock.
 
-Takes CUDA tensors already checked by ``kernels/ops.py``; the plain
-version is ``kernels/ref.py::ranked_eviction_ref``.
+Each takes CUDA tensors already checked by its wrapper in
+``kernels/ops.py``; the plain versions are ``kernels/ref.py::
+ranked_eviction_ref`` and ``sampled_eviction_ref``.
 """
 
 from __future__ import annotations
@@ -51,3 +54,25 @@ def ranked_eviction(size, insert_ts, last_ts, freq, offsets, e_choice,
         torch.cuda.current_stream(dev).cuda_stream)
     runtime.check(err, "ranked_eviction")
     return victims, cand
+
+
+def sampled_eviction(size, insert_ts, last_ts, freq, offsets, e_choice,
+                     clock, *, window: int, k: int, experts):
+    """Returns victim i64[B], cand i64[B, E].  ``clock`` is a 0-d f32
+    tensor on the card or a float."""
+    B = offsets.shape[0]
+    E = len(experts)
+    dev = offsets.device
+    victim = torch.empty(B, dtype=torch.int64, device=dev)
+    cand = torch.empty((B, E), dtype=torch.int64, device=dev)
+    on_card = isinstance(clock, torch.Tensor)
+    err = runtime.lib().sampled_eviction_launch(
+        size.data_ptr(), insert_ts.data_ptr(), last_ts.data_ptr(),
+        freq.data_ptr(), size.shape[0], offsets.data_ptr(),
+        e_choice.data_ptr(), clock.data_ptr() if on_card else None,
+        0.0 if on_card else clock, _codes(experts, dev).data_ptr(), B,
+        window, k, E, victim.data_ptr(), cand.data_ptr(),
+        runtime.counter("sampled_eviction", dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    runtime.check(err, "sampled_eviction")
+    return victim, cand

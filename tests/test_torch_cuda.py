@@ -37,6 +37,8 @@ from repro_torch.serve import DecodeEngine
 from repro_torch.workloads import gen, plan
 
 EXPERTS = ("lru", "lfu", "fifo", "size", "hyperbolic")
+# The kernels of core.access, which a cache step launches once each.
+CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
 C = 8
 
 
@@ -109,8 +111,39 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
         g = ops.ranked_eviction_op(*rargs, **kw)
         w = ref.ranked_eviction_ref(*rargs, **kw)
         assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+    # The kernels.ops entry point's own three.
+    g = ops.bucket_lookup_op(args[0], args[1], keys, assoc=assoc)
+    w = ref.bucket_lookup_ref(args[0], args[1], keys, assoc=assoc)
+    assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    assert bool(g[0].any())
+
+    for W in (20, 128):   # f32 columns padded at the tail with empty slots
+        pad = lambda x: torch.cat([x.float(), x.new_zeros(W).float()])
+        offs = np.append(rng.integers(0, n, B - 1), n)   # last: the tail
+        sargs = (pad(rargs[0]), pad(rargs[1]), pad(last), pad(freq),
+                 _t(offs, cuda), _t(rng.integers(0, 5, B), cuda))
+        for clock in (1000.0, torch.tensor(1003.0, device=cuda)):
+            kw = dict(window=W, k=5, experts=EXPERTS)
+            g = ops.sampled_eviction_op(*sargs, clock, **kw)
+            w = ref.sampled_eviction_ref(*sargs, clock, **kw)
+            assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+            assert int(g[0][-1]) == -1 and int((g[0] >= 0).sum()) > B // 2
+
+    slots = hit.clone()
+    slots[4:9] = 17                     # duplicates, -1 no-ops, past C
+    slots[9] = n + 3
+    margs = (freq.float(), last.float(), slots,
+             torch.rand(B, device=cuda) * 10, 1001.5)
+    g = ops.metadata_update_op(*margs)
+    again = ops.metadata_update_op(*margs)
+    w = ref.metadata_update_ref(*margs)
+    for x, y, z in zip(g, again, w):    # the same bits on every launch
+        assert torch.equal(x, y) and torch.equal(x, z)
     assert ops.launches() == {"access_probe": 1, "hit_metadata_update": 1,
-                              "ranked_eviction": 2, "flash_attention": 0}
+                              "ranked_eviction": 2, "flash_attention": 0,
+                              "sampled_eviction": 4, "bucket_lookup": 1,
+                              "metadata_update": 2}
 
 
 def _ycsb(workload, n, n_keys, seed):
@@ -162,7 +195,7 @@ def test_trace_on_the_card_matches_the_cpu(cuda, backend):
     # (the config is this test's alone, so both segments capture).
     steps = 2 + gp.n_groups + (keys.shape[0] - half)
     want = steps if backend == "fused" else 0
-    assert launches == {k: 0 if k == "flash_attention" else want
+    assert launches == {k: want if k in CACHE_KERNELS else 0
                         for k in launches}
 
 
@@ -196,7 +229,7 @@ def test_a_later_run_replays_the_captured_step(cuda):
     first = ops.launches()
     ops.reset_launches()
     r2 = execute(c, keys[:short], plan=None, is_write=wr[:short])
-    cache_kernels = {k: 1 for k in first if k != "flash_attention"}
+    cache_kernels = dict.fromkeys(CACHE_KERNELS, 1)
     assert first == {k: (keys.shape[0] + 1) * cache_kernels.get(k, 0)
                      for k in first}
     assert ops.launches() == {k: short * cache_kernels.get(k, 0)
@@ -374,5 +407,4 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     (cpu_out, cpu_ev, _), (card_out, card_ev, launches) = (
         runs["cpu"], runs[str(cuda)])
     assert card_out == cpu_out and card_ev == cpu_ev > 0
-    assert min(launches[k] for k in ("access_probe", "hit_metadata_update",
-                                     "ranked_eviction")) > 0
+    assert min(launches[k] for k in CACHE_KERNELS) > 0

@@ -1,13 +1,21 @@
-"""The port's three main-path kernels against the JAX package's Pallas
-kernels, on the CPU.
+"""The port's cache kernels against the JAX package's Pallas kernels, on
+the CPU: the three of the main path, and the three that only the
+``kernels.ops`` entry point reaches (``sampled_eviction``,
+``bucket_lookup``, ``metadata_update``).
 
 Each plain version in ``repro_torch/kernels/ref.py`` (what the op
 wrappers run for CPU tensors) is held against the Pallas kernel it
 stands for, run in interpret mode as ``tests/test_kernels.py`` runs it:
 duplicates, -1 no-ops, odd batch sizes, history ages that wrap mod
-2^32, per-op quotas above one block, tenant filters and W = 128.
-Integer outputs are bit-equal; the f32 ``ext`` column is held to
-``assert_array_max_ulp(maxulp=4)`` (XLA and PyTorch round ``exp`` apart).
+2^32, per-op quotas above one block, tenant filters and W = 128; the
+entry point's three on ``tests/test_kernels.py``'s own shapes, experts
+and seeds.  Integer outputs are bit-equal; the f32 ``ext`` column is
+held to ``assert_array_max_ulp(maxulp=4)`` (XLA and PyTorch round
+``exp`` apart); ``metadata_update``'s ``freq`` is bit-equal on integer
+deltas and within ``rtol=1e-6`` on non-integer ones (the Pallas kernel
+sums a slot's deltas before adding them, the port adds them one by one
+in batch order).  Where the JAX op asserts a tiling (B % 8, C % 512),
+the port's other shapes are held against ``repro/kernels/ref.py``.
 
 The CUDA kernels themselves build and run only on the card:
 ``tests/test_torch_cuda.py`` compares them with the plain versions there.
@@ -23,6 +31,7 @@ import torch
 
 from repro.core.hashing import hash_key as j_hash_key
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import ops, runtime
 from repro_torch.kernels.sampled_eviction import KERNEL_EXPERTS
 
@@ -186,6 +195,212 @@ def test_ranked_eviction_scalar_quota_and_no_live_sample():
 
 
 # ---------------------------------------------------------------------------
+# sampled_eviction, bucket_lookup, metadata_update: the kernels.ops entry
+# point's own three, on tests/test_kernels.py's shapes, experts and seeds
+# ---------------------------------------------------------------------------
+
+SEEDS = [11 * i + 3 for i in range(10)]
+
+
+def _f(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _eviction_table(rng, C, W, live_frac=0.4):
+    """tests/test_kernels.py's table: f32 columns padded by W at the tail
+    (sizes there stay 0: empty slots)."""
+    size = np.zeros(C + W, np.float32)
+    n_live = int(C * live_frac)
+    idx = rng.choice(C, n_live, replace=False)
+    size[idx] = rng.integers(1, 9, n_live)
+    ins = rng.integers(0, 1000, C + W).astype(np.float32)
+    last = rng.integers(0, 1000, C + W).astype(np.float32)
+    freq = rng.integers(1, 50, C + W).astype(np.float32)
+    return size, ins, last, freq
+
+
+@pytest.mark.parametrize("C,W,B,experts", [
+    (512, 20, 8, ("lru", "lfu")),
+    (2048, 20, 32, ("lru", "lfu")),
+    (2048, 12, 16, ("lru", "lfu", "fifo", "size")),
+    (4096, 24, 64, ("hyperbolic", "lfu")),
+    (1024, 128, 16, EXPERTS),
+])
+def test_sampled_eviction_matches_pallas(rng, C, W, B, experts):
+    size, ins, last, freq = _eviction_table(rng, C, W)
+    freq[: C // 2] = 7.0                        # priority ties
+    offs = rng.integers(0, C, B).astype(np.int32)
+    offs[-1] = C                                # a window in the empty tail
+    choice = rng.integers(0, len(experts), B).astype(np.int32)
+    wv, wc = jops.sampled_eviction_op(size, ins, last, freq, offs, choice,
+                                      1000.0, window=W, experts=experts)
+    gv, gc = ops.sampled_eviction_op(_f(size), _f(ins), _f(last), _f(freq),
+                                     _t(offs), _t(choice), 1000.0, window=W,
+                                     experts=experts)
+    assert np.array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
+    assert np.array_equal(gc.numpy(), np.asarray(wc).astype(np.int64))
+    assert gv[-1] == -1 and (gc[-1] == -1).all()
+    assert int((gv >= 0).sum()) > B // 2
+
+
+def test_sampled_eviction_empty_table(rng):
+    C, W, B = 512, 20, 8
+    size = np.zeros(C + W, np.float32)  # nothing live
+    ins = last = freq = np.ones(C + W, np.float32)
+    offs = rng.integers(0, C, B).astype(np.int32)
+    choice = np.zeros(B, np.int32)
+    wv, wc = jops.sampled_eviction_op(size, ins, last, freq, offs, choice,
+                                      10.0)
+    gv, gc = ops.sampled_eviction_op(_f(size), _f(ins), _f(last), _f(freq),
+                                     _t(offs), _t(choice), torch.tensor(10.0))
+    assert (gv == -1).all() and (gc == -1).all()
+    assert np.array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
+    assert np.array_equal(gc.numpy(), np.asarray(wc).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed,C,W,B,k", [(0, 300, 20, 13, 5),
+                                          (1, 97, 40, 5, 32)])
+def test_sampled_eviction_odd_batch_matches_the_jnp_oracle(seed, C, W, B, k):
+    """B % 8 != 0, which the Pallas kernel refuses: against its oracle."""
+    rng = np.random.default_rng(seed)
+    size, ins, last, freq = _eviction_table(rng, C, W, live_frac=0.6)
+    offs = rng.integers(0, C + 1, B).astype(np.int32)
+    choice = rng.integers(0, len(EXPERTS), B).astype(np.int32)
+    wv, wc = jref.sampled_eviction_ref(
+        jnp.asarray(size), jnp.asarray(ins), jnp.asarray(last),
+        jnp.asarray(freq), jnp.asarray(offs), jnp.asarray(choice), 990.0,
+        window=W, k=k, experts=EXPERTS)
+    gv, gc = ops.sampled_eviction_op(_f(size), _f(ins), _f(last), _f(freq),
+                                     _t(offs), _t(choice), 990.0, window=W,
+                                     k=k, experts=EXPERTS)
+    assert np.array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
+    assert np.array_equal(gc.numpy(), np.asarray(wc).astype(np.int64))
+
+
+def test_sampled_eviction_out_of_range_choice_and_positions():
+    """The port's rules where the JAX op leaves the result undefined: an
+    expert choice outside [0, E) takes no victim, and a window position
+    past the columns reads as an empty slot."""
+    col = _f([0, 3, 1, 2, 5])
+    v, c = ops.sampled_eviction_op(col, col, col, _f([0, 1, 9, 0, 0]),
+                                   _t([1, 1, 3]), _t([2, -1, 0]), 9.0,
+                                   window=3, k=2)
+    assert c.tolist() == [[2, 1], [2, 1], [3, 3]]
+    assert v.tolist() == [-1, -1, 3]
+
+
+@pytest.mark.parametrize("C,A,B", [(512, 8, 16), (4096, 8, 32), (1024, 4, 8),
+                                   (515, 8, 13)])
+def test_bucket_lookup_matches_pallas(rng, C, A, B):
+    """tests/test_kernels.py's planted table; C = 515 leaves a ragged
+    tail (floor(C / A) buckets) and B = 13 is odd."""
+    tk = np.zeros(C, np.uint32)
+    tsz = np.zeros(C, np.uint32)
+    put = rng.integers(1, 1 << 31, 300).astype(np.uint32)
+    hs = np.asarray(j_hash_key(jnp.asarray(put)))
+    bs = hs % (C // A)
+    placed = []
+    for k, b in zip(put, bs):
+        for a in range(A):
+            s = b * A + a
+            if tsz[s] == 0:
+                tk[s] = k
+                tsz[s] = rng.choice([1, 255])   # live or a history entry
+                placed.append(k)
+                break
+    q = np.concatenate([np.array(placed[:B // 2], np.uint32),
+                        rng.integers(1, 1 << 31, B - B // 2).astype(np.uint32)])
+    q[-1] = q[0]                                # a duplicate
+    wf, ws = jops.bucket_lookup_op(tk, tsz, q, assoc=A)
+    gf, gs = ops.bucket_lookup_op(_t(tk), _t(tsz), _t(q), assoc=A)
+    assert np.array_equal(gf.numpy(), np.asarray(wf))
+    assert np.array_equal(gs.numpy(), np.asarray(ws).astype(np.int64))
+    assert int(gf.sum()) >= 1 and int((gs == -1).sum()) >= B - B // 2 - 1
+
+
+def test_bucket_lookup_odd_batch(rng):
+    C, A, B = 512, 8, 11
+    q = rng.integers(1, 1 << 31, B).astype(np.uint32)
+    z = np.zeros(C, np.uint32)
+    wf, ws = jops.bucket_lookup_op(z, z, q, assoc=A)
+    gf, gs = ops.bucket_lookup_op(_t(z), _t(z), _t(q), assoc=A)
+    assert gf.shape == (B,) and not gf.any() and (gs == -1).all()
+    assert np.array_equal(gs.numpy(), np.asarray(ws).astype(np.int64))
+
+
+def _sequential_update(freq, last, slots, deltas, clock):
+    """freq + d_1 + d_2 + ... in f32, one entry at a time, in batch order."""
+    freq, last = freq.copy(), last.copy()
+    for s, d in zip(slots, deltas):
+        if 0 <= s < freq.shape[0]:
+            freq[s] = np.float32(freq[s] + d)
+            last[s] = max(last[s], np.float32(clock))
+    return freq, last
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_metadata_update_matches_pallas(seed):
+    rng = np.random.default_rng(seed)
+    C, B = 1024, 32
+    freq = rng.integers(0, 100, C).astype(np.float32)
+    last = rng.integers(0, 100, C).astype(np.float32)
+    slots = rng.integers(-1, C, B).astype(np.int32)  # includes no-ops & dups
+    slots[1:4] = slots[0]
+    deltas = rng.integers(1, 10, B).astype(np.float32)
+    wf, wl = jops.metadata_update_op(freq, last, slots, deltas, 777.0)
+    gf, gl = ops.metadata_update_op(_f(freq), _f(last), _t(slots), _f(deltas),
+                                    777.0)
+    assert np.array_equal(gf.numpy(), np.asarray(wf))
+    assert np.array_equal(gl.numpy(), np.asarray(wl))
+    assert gf.data_ptr() != 0 and freq.sum() != gf.sum()   # fresh, updated
+
+    # Non-integer deltas: within rtol 1e-6 of the Pallas kernel (which sums
+    # a slot's deltas first), bit-equal to adding them one by one in order.
+    deltas = (rng.random(B) * 10).astype(np.float32)
+    freq = (freq + rng.random(C).astype(np.float32)).astype(np.float32)
+    wf, wl = jops.metadata_update_op(freq, last, slots, deltas, 777.5)
+    gf, gl = ops.metadata_update_op(_f(freq), _f(last), _t(slots), _f(deltas),
+                                    torch.tensor(777.5))
+    np.testing.assert_allclose(gf.numpy(), np.asarray(wf), rtol=1e-6)
+    assert np.array_equal(gl.numpy(), np.asarray(wl))
+    sf, sl = _sequential_update(freq, last, slots, deltas, 777.5)
+    assert np.array_equal(gf.numpy(), sf) and np.array_equal(gl.numpy(), sl)
+
+
+def test_metadata_update_combines_duplicates():
+    freq = np.zeros(512, np.float32)
+    last = np.zeros(512, np.float32)
+    slots = np.array([7, 7, 7, -1, 9, 9, 3, 3], np.int32)
+    deltas = np.ones(8, np.float32)
+    wf, wl = jops.metadata_update_op(freq, last, slots, deltas, 5.0)
+    f2, l2 = ops.metadata_update_op(_f(freq), _f(last), _t(slots), _f(deltas),
+                                    5.0)
+    assert float(f2[7]) == 3 and float(f2[9]) == 2 and float(f2[3]) == 2
+    assert float(l2[7]) == 5.0 and float(l2[0]) == 0.0
+    assert np.array_equal(f2.numpy(), np.asarray(wf))
+    assert np.array_equal(l2.numpy(), np.asarray(wl))
+
+
+@pytest.mark.parametrize("seed,C,B", [(0, 777, 13), (1, 5, 40)])
+def test_metadata_update_any_table_matches_the_jnp_oracle(seed, C, B):
+    """C % 512 != 0, which the Pallas kernel refuses, slots past C and a
+    zero delta (its slot's last_ts still moves): against its oracle."""
+    rng = np.random.default_rng(seed)
+    freq = rng.integers(0, 100, C).astype(np.float32)
+    last = rng.integers(0, 100, C).astype(np.float32)
+    slots = rng.integers(-1, C + 3, B).astype(np.int32)
+    deltas = rng.integers(0, 10, B).astype(np.float32)
+    deltas[0] = 0.0
+    wf, wl = jref.metadata_update_ref(jnp.asarray(freq), jnp.asarray(last),
+                                      jnp.asarray(slots), jnp.asarray(deltas),
+                                      150.0)
+    gf, gl = ops.metadata_update_op(_f(freq), _f(last), _t(slots), _f(deltas),
+                                    150.0)
+    assert np.array_equal(gf.numpy(), np.asarray(wf))
+    assert np.array_equal(gl.numpy(), np.asarray(wl))
+
+
+# ---------------------------------------------------------------------------
 # the op wrappers
 # ---------------------------------------------------------------------------
 
@@ -195,8 +410,15 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                                _t([1]), _t([3]), _t([-1]), _t([0]))
     q = torch.zeros(1, 3, 2, 32)
     ops.flash_attention_op(q, q, q)
+    col = torch.ones(8)
+    ops.sampled_eviction_op(col, col, col, col, _t([0]), _t([0]), 1.0,
+                            window=4, k=2)
+    ops.bucket_lookup_op(_t([0] * 8), _t([0] * 8), _t([1]), assoc=4)
+    ops.metadata_update_op(col, col, _t([3]), torch.ones(1), 2.0)
     assert ops.launches() == {"access_probe": 0, "hit_metadata_update": 0,
-                              "ranked_eviction": 0, "flash_attention": 0}
+                              "ranked_eviction": 0, "flash_attention": 0,
+                              "sampled_eviction": 0, "bucket_lookup": 0,
+                              "metadata_update": 0}
 
 
 def test_wrappers_check_their_arguments():
@@ -223,11 +445,46 @@ def test_wrappers_check_their_arguments():
                             history_len=8)
     assert KERNEL_EXPERTS == jops.KERNEL_EXPERTS
 
+    col, one = torch.ones(8), _t([0])
+    with pytest.raises(TypeError):          # u32 columns are not f32
+        ops.sampled_eviction_op(_t([1] * 8), col, col, col, one, one, 1.0,
+                                window=4)
+    with pytest.raises(ValueError, match="supports"):
+        ops.sampled_eviction_op(col, col, col, col, one, one, 1.0,
+                                window=4, experts=("lrfu",))
+    with pytest.raises(ValueError, match="window"):
+        ops.sampled_eviction_op(col, col, col, col, one, one, 1.0, window=9)
+    with pytest.raises(ValueError, match="k="):
+        ops.sampled_eviction_op(col, col, col, col, one, one, 1.0, window=8,
+                                k=33)
+    with pytest.raises(TypeError, match="clock"):
+        ops.sampled_eviction_op(col, col, col, col, one, one,
+                                torch.tensor(1), window=4)
+    with pytest.raises(ValueError, match="clock"):
+        ops.metadata_update_op(col, col, one, torch.ones(1),
+                               torch.ones(1))
+    with pytest.raises(TypeError, match="clock"):
+        ops.metadata_update_op(col, col, one, torch.ones(1), "1")
+    with pytest.raises(TypeError, match="deltas"):
+        ops.metadata_update_op(col, col, one, _t([1]), 1.0)
+    with pytest.raises(ValueError, match="assoc"):
+        ops.bucket_lookup_op(_t([0] * 3), _t([0] * 3), _t([1]), assoc=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bucket_lookup_op(_t([0] * 16)[::2], _t([0] * 8), _t([1]),
+                             assoc=4)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.metadata_update_op(col.to("meta"), col.to("meta"),
+                               one.to("meta"), torch.ones(1, device="meta"),
+                               1.0)
+
 
 def test_each_cuda_source_carries_its_note_and_entry_point():
     srcs = {p.stem: p.read_text() for p in runtime.sources()}
     assert set(srcs) == {"access_probe", "hit_metadata_update",
-                         "ranked_eviction", "flash_attention"}
+                         "ranked_eviction", "flash_attention",
+                         "sampled_eviction", "bucket_lookup",
+                         "metadata_update"}
+    assert set(srcs) == set(runtime.KERNELS)
     for name, text in srcs.items():
         assert f"extern \"C\" int {name}_launch(" in text
         assert "Replaces the Pallas kernel" in text
