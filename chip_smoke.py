@@ -46,23 +46,26 @@ Phases, each of which raises (exit code != 0) on any failure:
    its default plan (``"adaptive"``, a width per 64-row window), from
    the caches phase 4 left, checked the same way.
 6. Flash kernel: ``flash_attention`` against its plain version on the
-   card at yi-9b's (B=1, T=4096, H=32, D=128) and smollm-135m's (B=4,
-   T=2048, H=9, D=64) attention shapes in bf16 and f32, with k and v as
-   ``repeat_kv``'s GQA expand view, at a ragged T = 1000, and once with
-   plain [B, T, H, D] k and v.  Every output row (b, t, h) must be within
-   a relative L2 error of 2^-7 in bf16 and 2^-16 in f32 of the plain
-   version's f32 output (about twice the largest reading on the card),
-   and every element within 2e-2 in bf16 and 2e-5 in f32 of the plain
-   version's output (as ``tests/test_kernels.py`` holds the Pallas
-   kernel).  Controls on yi-9b's bf16 inputs show the row bound's two
-   sides: the kernel's recurrence written in PyTorch passes it; the same
-   recurrence without the rescale of the running sum, or of the sum and
-   the accumulator, the plain output 3% off past the first tile, and
-   bf16 scores (the JAX package's ``full_attention``) each fail it.
-   Then the kernel, its plain version and PyTorch's SDPA (the yardstick,
-   ``library_ms``) are timed with CUDA events at yi-9b's prefill shape
-   T = 32,768, B = 1 (the ``prefill_32k`` cell has global batch 32;
-   batch 1 is the cut), and the kernel is checked there too.
+   card at yi-9b's (B=1, T=4096, H=32, D=128), smollm-135m's (B=4,
+   T=2048, H=9, D=64) and gemma-2b's (B=1, T=4096, H=8, Hkv=1, D=256)
+   attention shapes in bf16 and f32, with k and v as ``repeat_kv``'s GQA
+   expand view, at a ragged T = 1000, and once with plain [B, T, H, D] k
+   and v.  Every output row (b, t, h) must be within a relative L2 error
+   of 2^-7 in bf16 and 2^-16 in f32 of the plain version's f32 output
+   (about twice the largest reading on the card), and every element
+   within 2e-2 in bf16 and 2e-5 in f32 of the plain version's output (as
+   ``tests/test_kernels.py`` holds the Pallas kernel).  Controls on
+   yi-9b's bf16 inputs show the row bound's two sides: the kernel's
+   recurrence written in PyTorch passes it; the same recurrence without
+   the rescale of the running sum, or of the sum and the accumulator,
+   the plain output 3% off past the first tile, and bf16 scores (the JAX
+   package's ``full_attention``) each fail it.  Then the kernel, its
+   plain version and PyTorch's SDPA (the yardstick, ``library_ms``) are
+   timed with CUDA events at yi-9b's prefill shape T = 32,768, B = 1
+   (the ``prefill_32k`` cell has global batch 32; batch 1 is the cut),
+   where the kernel is checked too, at yi-9b's T = 4096 and at
+   gemma-2b's shape, each with its TFLOP/s, share of the bound and ratio
+   to SDPA.
 7. Prefill forward of yi-9b at full width (48 layers, d_model 4096),
    random bf16 weights from ``init_params`` with a seeded generator on
    the card, at T = 4096, B = 1.  Each of the 48 launches is held
@@ -76,7 +79,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    path.  48 random layers amplify any rounding difference to about the
    same distance (a fault in a layer gives one near 1).  Then
    T = 32,768, B = 1 through the kernel path: wall time, tokens/s and
-   peak memory.
+   peak memory.  After phase 8, gemma-2b's prefill (18 layers, d_model
+   2048, head dim 256, MQA) at full width the same way at T = 4096: 18
+   launches, each held to the plain version, and its hidden states.
 8. Serving: ``DecodeEngine`` on yi-9b at full width answers 24 requests
    (prompt 96 tokens with a shared 48-token prefix, 16 new tokens,
    4 lanes, pages of 16 tokens, a 32-page pool, so the Ditto page cache
@@ -131,9 +136,10 @@ CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
 # batches of 2048 keys its counted path drives through them.
 ENTRY_KERNELS = ("sampled_eviction", "bucket_lookup", "metadata_update")
 ENTRY_STEPS = 8
-# Phase 6: (arch, B, T, H, D, H / Hkv) of the two attention shapes.
+# Phase 6: (arch, B, T, H, D, H / Hkv) of the three attention shapes.
 FLASH_SHAPES = (("yi-9b", 1, 4096, 32, 128, 8),
-                ("smollm-135m", 4, 2048, 9, 64, 3))
+                ("smollm-135m", 4, 2048, 9, 64, 3),
+                ("gemma-2b", 1, 4096, 8, 256, 8))
 # Each element within tol + tol*|want| of the plain version's output, as
 # tests/test_kernels.py holds the Pallas kernel; too loose to see a fault
 # in the late rows, whose values are a few hundredths at T = 32,768.
@@ -146,7 +152,7 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # run.  In f32 with room for the error's growth with T (2.3e-6 at
 # T = 4096).
 FLASH_ROW_TOL = {"bfloat16": 2 ** -7, "float32": 2 ** -16}
-FLASH_TILE = 64         # the kernel's KV tile and query tile
+FLASH_TILE = 128        # the bf16 kernel's query tile; its KV tile at D <= 128
 PREFILL_T, PREFILL_LONG_T = 4096, 32_768
 ENGINE = dict(requests=24, prompt=96, shared=48, new=16, lanes=4,
               page_size=16, pool_pages=32)
@@ -1092,66 +1098,74 @@ def check_flash(dev, card: str, results: dict) -> None:
     r["row_err"] = rows[torch.bfloat16]
     r["row_err_f32"] = rows[torch.float32]
 
-    # Timing at yi-9b's prefill shape, B = 1 (the main path's dtype and
-    # GQA view).  SDPA gets the same values with k and v as [B, H, T, D]
-    # views of materialized heads (made outside the timing).
-    _, B, _, H, D, n_rep = FLASH_SHAPES[0]
-    T = PREFILL_LONG_T
-    q, k, v = flash_inputs(dev, B, T, H, D, n_rep, torch.bfloat16, seed=99)
-    r["max_abs_err_32k"], r["row_err_32k"] = flash_close(
-        f"flash_attention[T={T}]", ops.flash_attention_op(q, k, v),
-        plain32(q, k, v))
-    k4, v4 = k.flatten(2, 3).contiguous(), v.flatten(2, 3).contiguous()
-    qt, kt, vt = q.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
+    # Timing (the main path's dtype and GQA view): yi-9b at its prefill
+    # shape T = 32,768 (the kernels line's numbers) and at T = 4096, and
+    # gemma-2b at T = 4096, B = 1.  SDPA gets the same values with k and v
+    # as [B, H, T, D] views of materialized heads (made outside the timing).
+    # Launched from Python: at tenths of a ms a call and up the host's cost
+    # is noise.
+    for key, (arch, B, _, H, D, n_rep), T, seed in (
+            ("", FLASH_SHAPES[0], PREFILL_LONG_T, 99),
+            ("_4k", FLASH_SHAPES[0], PREFILL_T, 98),
+            ("_gemma_4k", FLASH_SHAPES[2], PREFILL_T, 97)):
+        q, k, v = flash_inputs(dev, B, T, H, D, n_rep, torch.bfloat16, seed)
+        if T == PREFILL_LONG_T:
+            r["max_abs_err_32k"], r["row_err_32k"] = flash_close(
+                f"flash_attention[{arch}, T={T}]",
+                ops.flash_attention_op(q, k, v), plain32(q, k, v))
+        k4, v4 = k.flatten(2, 3).contiguous(), v.flatten(2, 3).contiguous()
+        qt, kt, vt = q.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
 
-    def sdpa():
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                          SDPBackend.CUDNN_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION]):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        def sdpa():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
 
-    # Launched from Python: at tens of ms a call the host's cost is noise.
-    r["ms"] = eager_ms(lambda: ops.flash_attention_op(q, k, v), n=5)
-    r["plain_ms"] = eager_ms(lambda: ref.flash_attention_ref(q, k, v), n=2)
-    r["library_ms"] = eager_ms(sdpa, n=5)
-    flops = 2 * B * H * T * T * D          # 0.5 * 4 * B*H*T^2*D, causal
-    nbytes = (2 * B * T * H * D + 2 * B * T * (H // n_rep) * D) * 2
-    r["flops"], r["bytes"] = flops, nbytes
-    r["bound_ms"] = max(flops / BF16_FLOP_PER_S,
-                        nbytes / HBM_BYTES_PER_S) * 1e3
-    r["bound_by"] = ("operations" if flops / BF16_FLOP_PER_S
-                     >= nbytes / HBM_BYTES_PER_S else "bytes")
-    q4, k4s, v4s = flash_inputs(dev, *FLASH_SHAPES[0][1:], torch.bfloat16,
-                                seed=98)
-    r["ms_4k"] = eager_ms(lambda: ops.flash_attention_op(q4, k4s, v4s), n=10)
-    r["bound_ms_4k"] = (2 * H * PREFILL_T ** 2 * D / BF16_FLOP_PER_S * 1e3)
-    log(f"[{card}] flash_attention at B={B}, T={T}, H={H}, D={D} bf16: "
-        f"{r['ms']:.2f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
-        f"{r['bound_ms'] / r['ms']:.3f} of the bound {r['bound_ms']:.2f} ms "
-        f"by {r['bound_by']}), plain {r['plain_ms']:.1f} ms, SDPA "
-        f"{r['library_ms']:.2f} ms; at T={PREFILL_T}: {r['ms_4k']:.3f} ms "
-        f"(bound {r['bound_ms_4k']:.3f} ms)")
+        n = 5 if T == PREFILL_LONG_T else 20
+        ms = eager_ms(lambda: ops.flash_attention_op(q, k, v), n=n)
+        plain_ms = eager_ms(lambda: ref.flash_attention_ref(q, k, v), n=2)
+        library_ms = eager_ms(sdpa, n=n)
+        flops = 2 * B * H * T * T * D          # 0.5 * 4 * B*H*T^2*D, causal
+        nbytes = (2 * B * T * H * D + 2 * B * T * (H // n_rep) * D) * 2
+        bound_ms = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = ("operations" if flops / BF16_FLOP_PER_S
+              >= nbytes / HBM_BYTES_PER_S else "bytes")
+        r.update({"ms" + key: ms, "plain_ms" + key: plain_ms,
+                  "library_ms" + key: library_ms, "bound_ms" + key: bound_ms,
+                  "bound_by" + key: by, "flops" + key: flops,
+                  "bytes" + key: nbytes})
+        log(f"[{card}] flash_attention[{arch}, B={B}, T={T}, H={H}, "
+            f"Hkv={H // n_rep}, D={D}] bf16: {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+            f"bound {bound_ms:.3f} ms by {by}), plain {plain_ms:.1f} ms, "
+            f"SDPA {library_ms:.3f} ms (kernel / SDPA {ms / library_ms:.2f})")
+        del q, k, v, k4, v4, qt, kt, vt
 
 
-def yi_params(dev):
-    """yi-9b at full width, random bf16 weights from a seeded generator
+def arch_params(dev, arch: str):
+    """An arch at full width, random bf16 weights from a seeded generator
     on the card."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params, param_count
-    cfg = get_arch("yi-9b")
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, generator=torch.Generator(device=dev)
                          .manual_seed(SEED), device=dev)
     torch.cuda.synchronize()
-    log(f"yi-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{param_count(cfg) / 1e9:.2f}B params "
         f"made on the card in {time.perf_counter() - t0:.1f} s")
     return cfg, params
 
 
-def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
-    """Phase 7."""
+def run_prefill(dev, card: str, cfg, params, results: dict,
+                long_t: bool = True) -> dict:
+    """Phase 7 for one arch: T = 4096, and T = 32,768 where ``long_t``.
+    The kernels line's launches are yi-9b's (the first arch run); another
+    arch's go under keys suffixed with its name."""
     from unittest import mock
     import torch
     from repro_torch.kernels import ops, ref
@@ -1169,23 +1183,26 @@ def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = ops.launches()
     if launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"prefill launched flash_attention "
+        raise AssertionError(f"{cfg.name} prefill launched flash_attention "
                              f"{launches['flash_attention']} times, not "
                              f"{cfg.n_layers}")
-    results["flash_attention"]["launches"] = launches["flash_attention"]
+    r = results["flash_attention"]
+    suffix = "" if "launches" not in r else "_" + cfg.name.replace("-", "_")
+    r["launches" + suffix] = launches["flash_attention"]
     # Each launch against the plain version on its own in-model inputs.
     kernel, errs = ops.flash_attention_op, []
 
     def held(q, k, v):
         o = kernel(q, k, v)
-        errs.append(flash_close(f"prefill layer {len(errs)}", o,
+        errs.append(flash_close(f"{cfg.name} prefill layer {len(errs)}", o,
                                 plain32(q, k, v)))
         return o
 
     with mock.patch.object(ops, "flash_attention_op", held):
         forward(params, cfg, tokens=toks)
     if len(errs) != cfg.n_layers:
-        raise AssertionError(f"prefill: {len(errs)} attention calls")
+        raise AssertionError(f"{cfg.name} prefill: {len(errs)} attention "
+                             "calls")
 
     from repro_torch.models.attention import full_attention
     plain = {}
@@ -1197,12 +1214,13 @@ def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
             if ops.launches()["flash_attention"] != 0:
                 raise AssertionError("a plain forward launched the kernel")
     if not bool(torch.isfinite(h).all()):
-        raise AssertionError("prefill: non-finite hidden states")
+        raise AssertionError(f"{cfg.name} prefill: non-finite hidden "
+                             "states")
     h_ref = plain["ref"]
     d = h.float() - h_ref
     rel = float(d.norm() / h_ref.norm())
     rel_full = float((plain["full_attention"] - h_ref).norm() / h_ref.norm())
-    table = params["unembed"].float()
+    table = params["embed" if cfg.tie_embeddings else "unembed"].float()
     lg = h[0, -16:].float() @ table.T
     lg_ref = h_ref[0, -16:] @ table.T
     noise = float((lg - lg_ref).abs().max())
@@ -1212,8 +1230,8 @@ def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
                rel_l2=rel, rel_l2_full_attention=rel_full,
                max_abs=float(d.abs().max()), logit_noise=noise,
                launches=launches["flash_attention"])
-    results["flash_attention"]["layer_row_err"] = out["layer_row_err"]
-    log(f"[{card}] prefill yi-9b T={PREFILL_T}: {wall * 1e3:.1f} ms, "
+    r["layer_row_err" + suffix] = out["layer_row_err"]
+    log(f"[{card}] prefill {cfg.name} T={PREFILL_T}: {wall * 1e3:.1f} ms, "
         f"{PREFILL_T / wall:.0f} tokens/s, flash launches "
         f"{launches['flash_attention']}, each within {out['layer_max_abs_err']:.3g} "
         f"(a row within {out['layer_row_err']:.3g}) of the plain version "
@@ -1222,10 +1240,13 @@ def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
         f"{out['max_abs']:.3g}, logits of the last 16 positions up to "
         f"{noise:.3g} apart), full_attention (bf16) path {rel_full:.3g}")
     if not rel <= 2 * rel_full:
-        raise AssertionError(f"prefill: the kernel path is {rel:.3g} from "
+        raise AssertionError(f"{cfg.name} prefill: the kernel path is "
+                             f"{rel:.3g} from "
                              f"the plain path, over twice the bf16 "
                              f"full_attention path's {rel_full:.3g}")
     del h, h_ref, d, plain
+    if not long_t:
+        return out
 
     toks = torch.randint(1, cfg.vocab_size, (1, PREFILL_LONG_T), generator=g,
                          device=dev)
@@ -1243,7 +1264,7 @@ def run_prefill(dev, card: str, cfg, params, results: dict) -> dict:
     out.update(long_t=PREFILL_LONG_T, long_wall_s=wall,
                long_tokens_per_s=PREFILL_LONG_T / wall,
                long_peak_mib=peak / 2**20)
-    log(f"[{card}] prefill yi-9b T={PREFILL_LONG_T}, B=1: {wall:.2f} s, "
+    log(f"[{card}] prefill {cfg.name} T={PREFILL_LONG_T}, B=1: {wall:.2f} s, "
         f"{PREFILL_LONG_T / wall:.0f} tokens/s, peak {peak / 2**30:.1f} GiB, "
         f"flash launches {n}")
     return out
@@ -1467,12 +1488,18 @@ def main() -> int:
                       Path(a.out).parent if a.out else None)
 
     check_flash(dev, card, results)
-    cfg, params = yi_params(dev)
+    cfg, params = arch_params(dev, "yi-9b")
     e2e["prefill"] = run_prefill(dev, card, cfg, params, results)
     e2e["engine"] = run_engine(dev, card, cfg, params)
     if a.profile:
         profile_lm(dev, card, cfg, params, 8,
                    Path(a.out).parent if a.out else None)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = arch_params(dev, "gemma-2b")
+    e2e["prefill_gemma_2b"] = run_prefill(dev, card, cfg, params, results,
+                                          long_t=False)
+    del params
 
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",
@@ -1484,8 +1511,10 @@ def main() -> int:
         "metadata_update": "src/repro/kernels/metadata_update.py:184"}
     extra = ("eager_ms", "copy_ms", "copy_bound_ms", "wrapper_ms",
              "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
-             "row_err_32k", "controls", "layer_row_err", "ms_4k",
-             "bound_ms_4k", "ms_pairs", "ms_one_slot")
+             "row_err_32k", "controls", "layer_row_err", "ms_pairs",
+             "ms_one_slot", "launches_gemma_2b", "layer_row_err_gemma_2b",
+             *(f + k for k in ("_4k", "_gemma_4k") for f in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")))
     kernels = []
     for name, r in results.items():
         by = r.get("bound_by", "bytes")

@@ -273,6 +273,14 @@ def _flash_inputs(dev, b, t, h, d, n_rep, dtype, seed):
     (2, 256, 3, 64, 1),
     (1, 130, 2, 32, 2),
     (3, 1, 4, 64, 1),         # one token
+    # Head dim 256 (gemma-2b's, MQA at n_rep = 8) and T off the bf16
+    # kernel's 128-row query tiles and 128- or 64-key KV tiles.
+    (1, 1, 8, 256, 8),
+    (1, 127, 8, 256, 8),
+    (1, 129, 4, 256, 2),
+    (1, 1000, 8, 256, 8),
+    (2, 127, 4, 128, 2),
+    (1, 129, 2, 64, 1),
 ])
 def test_flash_kernel_matches_its_plain_version(cuda, dtype, b, t, h, d,
                                                 n_rep):
@@ -307,6 +315,13 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _flash_inputs(cuda, 1, 64, 2, 72, 1, torch.bfloat16, seed=0)
     with pytest.raises(ValueError, match="aligned"):   # 8 bytes in
         ops.flash_attention_op(q[..., 4:68], k[..., 4:68], v[..., 4:68])
+    # Layouts a TMA tensor map cannot describe: no fallback takes them.
+    q, k, v = _flash_inputs(cuda, 1, 64, 2, 64, 1, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="tensor map"):   # stride 0 on T
+        ops.flash_attention_op(q, k[:, :1].expand_as(k), v)
+    wide = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="tensor map"):   # 136-byte heads
+        ops.flash_attention_op(q, wide[..., :64], wide[..., :64])
 
 
 def _card_model():
@@ -335,12 +350,13 @@ def test_prefill_forward_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.cuda
 def test_bf16_prefill_forward_runs_the_tensor_core_kernel(cuda):
     """bf16 weights, the main path's dtype, so every layer launches the
-    mma.sync kernel (f32 takes the FMA one).  Each launch within both
-    bounds of the plain version on its in-model inputs; the hidden
-    states within a relative L2 of 2^-6 of the same forward through the
-    plain version (0.0109 on an H100 for this seed: three random layers
-    amplify the bf16 rounding of the attention output).  The control, the
-    plain version with every row past the first 64-row tile 3% off,
+    tensor-core (wgmma) kernel (f32 takes the FMA one).  Each launch
+    within both bounds of the plain version on its in-model inputs; the
+    hidden states within a relative L2 of 2^-6 of the same forward
+    through the plain version (about 0.011 on an H100 for this seed:
+    three random layers amplify the bf16 rounding of the attention
+    output).  The control, the plain version with every row past the
+    first 64 3% off,
     fails the row bound and lands past 2^-6 (0.0216 on the H100)."""
     cfg = _card_model()
     params = init_params(cfg, generator=torch.Generator(device=cuda)

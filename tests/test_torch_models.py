@@ -66,17 +66,33 @@ def _qkv(rng, b, t, h, d):
 # Attention.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,t,h,d,bq,bk,dtype", [
-    (2, 256, 4, 64, 128, 128, "f32"),
-    (1, 512, 2, 128, 128, 64, "f32"),
-    (2, 128, 3, 32, 64, 128, "f32"),
-    (2, 256, 2, 64, 128, 128, "bf16"),
-])
+_FLASH_CASES = [
+    (2, 256, 4, 64, 128, 128, "f32", 1),
+    (1, 512, 2, 128, 128, 64, "f32", 1),
+    (2, 128, 3, 32, 64, 128, "f32", 1),
+    (2, 256, 2, 64, 128, 128, "bf16", 1),
+    # Head dim 256 (gemma-2b's): heads of their own, GQA, and MQA in bf16.
+    (1, 256, 2, 256, 128, 128, "f32", 1),
+    (2, 128, 4, 256, 64, 128, "f32", 2),
+    (1, 256, 4, 256, 128, 64, "bf16", 4),
+]
+
+
+@pytest.mark.parametrize(
+    "b,t,h,d,bq,bk,dtype,n_rep", _FLASH_CASES,
+    ids=["-".join(map(str, c[:7])) + (f"-gqa{c[7]}" if c[7] > 1 else "")
+         for c in _FLASH_CASES])
 def test_flash_attention_ref_matches_the_pallas_kernel(b, t, h, d, bq, bk,
-                                                       dtype):
+                                                       dtype, n_rep):
+    """The Pallas kernel takes GQA pre-expanded (``repeat_kv`` in JAX);
+    the port takes ``repeat_kv``'s view of the H / n_rep kv heads."""
     rng = np.random.default_rng(t + d)
-    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in _qkv(rng, b, t,
-                                                                   h, d))
+    q, k, v = (rng.standard_normal((b, t, hh, d)).astype(np.float32)
+               for hh in (h, h // n_rep, h // n_rep))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    if n_rep > 1:
+        jk, jv = jatt.repeat_kv(jk, n_rep), jatt.repeat_kv(jv, n_rep)
+        tk, tv = tatt.repeat_kv(tk, n_rep), tatt.repeat_kv(tv, n_rep)
     want = j_flash(jq, jk, jv, blk_q=bq, blk_k=bk, interpret=True)
     got = ops.flash_attention_op(tq, tk, tv)     # CPU: the plain version
     assert got.dtype == DTYPES[dtype][1] and got.shape == (b, t, h, d)
@@ -267,6 +283,26 @@ def test_forward_matches_jax(arch):
     cfg = smoke_config(get_arch(arch))
     params = params_from_numpy(tree, "cpu")
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 24))
+    want = np.asarray(j_forward(jp, jcfg, tokens=jnp.asarray(toks)))
+    got = forward(params, cfg, tokens=torch.from_numpy(toks))
+    assert got.shape == (2, 24, cfg.d_model) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_forward_at_head_dim_256_matches_jax():
+    """gemma-2b's smoke config at gemma-2b's own head dim of 256 (the
+    smoke configs cut it to 16): the head dim the card's flash kernel
+    took last.  On the CPU the port's attention is the plain version."""
+    jcfg = dataclasses.replace(j_smoke_config(j_get_arch("gemma-2b")),
+                               head_dim=256)
+    cfg = dataclasses.replace(smoke_config(get_arch("gemma-2b")),
+                              head_dim=256)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    assert params["period"]["0_attn"]["wq"].shape[-2:] == (
+        cfg.d_model, cfg.n_heads * 256)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24))
     want = np.asarray(j_forward(jp, jcfg, tokens=jnp.asarray(toks)))
     got = forward(params, cfg, tokens=torch.from_numpy(toks))
     assert got.shape == (2, 24, cfg.d_model) and got.dtype == torch.float32
