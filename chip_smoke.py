@@ -12,13 +12,18 @@ Phases, each of which raises (exit code != 0) on any failure:
 
 1. Build: the hand-written CUDA kernels of ``src/repro_torch/kernels/csrc``
    compile with nvcc (one process per source, all at once).
-2. Per-kernel check: ``access_probe``, ``hit_metadata_update`` and
-   ``ranked_eviction`` against their plain PyTorch versions on the card,
-   over a random 2,097,152-slot table made with numpy from a seed, at
-   B = 64 and B = 2048 with duplicates, -1 no-ops, history ages that
-   wrap, quota > 1 and tenant filters.  Integer outputs must be
-   bit-equal; the f32 ``ext`` column within 2 ulp.  Each kernel and its
-   plain version are timed with CUDA events at the main path's shapes.
+2. Per-kernel check: the cache step's four kernels, ``access_probe``,
+   ``hit_metadata_update`` (in place, and its functional form),
+   ``ranked_eviction`` and ``drop_scatter`` (the apply's in-place writes:
+   nine columns, half the entries dropped), against their plain PyTorch
+   versions on the card, over a random 2,097,152-slot table made with
+   numpy from a seed, at B = 64 and B = 2048 with duplicates, -1 no-ops,
+   every hit on one slot, flushes on exactly the hit slots, history ages
+   that wrap, quota > 1 and tenant filters.  Every output must be
+   bit-equal.  Each kernel and its plain version are timed with CUDA
+   events at the main path's shapes (the in-place ones on copies of the
+   columns, with no copy in the time), and ``hit_metadata_update``'s
+   functional form, which copies the three columns first, on its own.
    Then the three kernels that only the ``kernels.ops`` entry point
    reaches: ``bucket_lookup``, ``sampled_eviction`` (f32 columns padded
    at the tail by W = 20 and 128 with empty slots, all five experts, the
@@ -39,7 +44,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    planned once at batch 32, through ``execute()`` with the fused and
    the reference backend.  Integer state, OpStats and per-round hits
    must be bit-equal, f32 columns within 4 ulp; every kernel must have
-   launched and the cache must have evicted.
+   launched and the cache must have evicted.  One eager grouped step of
+   each backend runs under a dispatch mode that lists every operator
+   returning a whole column (2,097,152 rows or more): the fused step's
+   must be the ``bytes_cached`` reduction's two and nothing else (no
+   clone, copy, concatenation or fill of a column; its kernels write
+   the table in place).
 4. End to end, sequential: 1,000 more rounds at ``plan=None`` from the
    warmed caches, checked the same way.
 5. End to end, adaptive: 2,000 more rounds through ``execute()`` with
@@ -86,9 +96,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    (prompt 96 tokens with a shared 48-token prefix, 16 new tokens,
    4 lanes, pages of 16 tokens, a 32-page pool, so the Ditto page cache
    evicts).  Every request must finish, the prefix hit rate and the
-   evictions be > 0, and the page cache's three kernels have launched.
+   evictions be > 0, and the page cache's four kernels have launched.
    The page cache's lookup stream is replayed through a fresh page cache
-   on the card, with every launch of its three kernels held against the
+   on the card, with every launch of its four kernels held against the
    plain version on the same inputs (at the engine's shapes: one key a
    lookup on a 512-slot table), and through one on the CPU; each
    lookup's answer and the final state must equal the engine's.
@@ -131,7 +141,8 @@ N_KEYS = 10_000_000
 SEQ_ROUNDS = 1_000
 ADAPTIVE_ROWS = 2_000
 EXPERTS_ALL = ("lru", "lfu", "fifo", "size", "hyperbolic")
-CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
+CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction",
+                 "drop_scatter")
 # The kernels that only the kernels.ops entry point reaches, and the Get
 # batches of 2048 keys its counted path drives through them.
 ENTRY_KERNELS = ("sampled_eviction", "bucket_lookup", "metadata_update")
@@ -340,14 +351,56 @@ def check_kernels(dev, results: dict) -> None:
         args = tuple(torch.from_numpy(a).to(dev) for a in (hit, hts, emit,
                                                            delta))
         margs = (freq, last, ext) + args
-        got = ops.hit_metadata_update_op(*margs)
-        want = ref.hit_metadata_update_ref(*margs)
-        same_int(f"hit_metadata_update[B={B}].freq", got[0], want[0])
-        same_int(f"hit_metadata_update[B={B}].last_ts", got[1], want[1])
-        err = close_f32(f"hit_metadata_update[B={B}].ext", got[2], want[2], 2)
-        results.setdefault("hit_metadata_update", {})["max_abs_err"] = max(
-            err, results.get("hit_metadata_update", {}).get("max_abs_err", 0))
+        # The in-place kernel on copies of the columns and its functional
+        # form, each bit-equal to the plain version; then every hit on one
+        # slot, and flushes on exactly the hit slots (the FAA must not
+        # reach a slot before its ext update has read the step-entry freq).
+        one = np.full(B, hit[0] if hit[0] >= 0 else live[0], np.int64)
+        cases = (("", args),
+                 (",one slot", tuple(torch.from_numpy(a).to(dev) for a in (
+                     one, hts, np.full(Be, one[0]), np.ones(Be, np.int64)))),
+                 (",flush at hits", tuple(torch.from_numpy(a).to(dev) for a in (
+                     hit, hts, hit, np.where(hit >= 0, 3, 0)))))
+        for tag, cargs in cases:
+            want = ref.hit_metadata_update_ref(freq, last, ext, *cargs)
+            got = tuple(c.clone() for c in (freq, last, ext))
+            ops.hit_metadata_update_op_(*got, *cargs)
+            for form, g in (("in place", got), ("functional",
+                            ops.hit_metadata_update_op(freq, last, ext,
+                                                       *cargs))):
+                what = f"hit_metadata_update[B={B}{tag}, {form}]"
+                same_int(f"{what}.freq", g[0], want[0])
+                same_int(f"{what}.last_ts", g[1], want[1])
+                same_bits(f"{what}.ext", g[2], want[2])
+        results.setdefault("hit_metadata_update", {})["max_abs_err"] = 0.0
         shapes[("hit_metadata_update", B)] = (margs, {})
+
+        # drop_scatter: the apply's insert write (all nine columns, numbers
+        # and rows) with about half the entries at the dropped index.
+        n_ins = B // 2
+        tgt = np.full(B, n_slots, np.int64)
+        tgt[rng.choice(B, n_ins, replace=False)] = rng.choice(
+            n_slots, n_ins, replace=False)
+        cols = (t["key"], t["key_hash"], t["size"], t["ptr"], ins, last, freq,
+                ext, torch.from_numpy(u32(2 * n_slots).reshape(n_slots, 2))
+                .to(dev))
+        srcs = (keys, torch.from_numpy(u32(B)).to(dev),
+                torch.from_numpy(rng.integers(1, 9, B)).to(dev), 0,
+                args[1], args[1], 1, torch.from_numpy(
+                    rng.random((B, 4), np.float32)).to(dev),
+                torch.from_numpy(u32(2 * B).reshape(B, 2)).to(dev))
+        sargs = (torch.from_numpy(tgt).to(dev), cols, srcs)
+        got = tuple(c.clone() for c in cols)
+        ops.drop_scatter_op_(sargs[0], got, srcs)
+        want = tuple(c.clone() for c in cols)
+        ref.drop_scatter_ref(sargs[0], want, srcs)
+        for k, (g, w) in enumerate(zip(got, want)):
+            (same_bits if g.is_floating_point() else same_int)(
+                f"drop_scatter[B={B}].col{k}", g, w)
+        if torch.equal(got[0], cols[0]):
+            raise AssertionError("drop_scatter wrote nothing")
+        results.setdefault("drop_scatter", {})["max_abs_err"] = 0.0
+        shapes[("drop_scatter", B)] = (sargs, {})
 
         # ranked_eviction: all five kernel experts, W = 20 and W = 128,
         # per-op quota up to 3, tenant filters; then the main path's form.
@@ -378,22 +431,26 @@ def check_kernels(dev, results: dict) -> None:
         log(f"kernels agree with their plain versions at B={B}")
 
     # Timing at the main path's shape (B = G * C = 2048) on this table.
+    # The in-place kernels write copies of the columns, so the later
+    # phases read the table as it was.
     torch.cuda.synchronize()
     from repro_torch.kernels.bucket_lookup import access_probe
-    from repro_torch.kernels.metadata_update import (
-        hit_metadata_update, hit_metadata_update_into)
+    from repro_torch.kernels.metadata_update import hit_metadata_update_
     from repro_torch.kernels.sampled_eviction import ranked_eviction
-    # hit_metadata_update's own passes write into copies of the step-entry
-    # columns; the copy is timed and bounded on its own below.
+    from repro_torch.kernels.scatter import drop_scatter
     margs, _ = shapes[("hit_metadata_update", 2048)]
-    fresh = tuple(a.clone() for a in margs[:3])
+    sargs, _ = shapes[("drop_scatter", 2048)]
+    timed = {"hit_metadata_update": (tuple(a.clone() for a in margs[:3])
+                                     + margs[3:], {}),
+             "drop_scatter": ((sargs[0], tuple(c.clone() for c in sargs[1]),
+                               sargs[2]), {})}
     kern = {"access_probe": (access_probe, ref.access_probe_ref),
-            "hit_metadata_update": (
-                lambda *a: hit_metadata_update_into(*a, *fresh),
-                ref.hit_metadata_update_ref),
-            "ranked_eviction": (ranked_eviction, ref.ranked_eviction_ref)}
+            "hit_metadata_update": (hit_metadata_update_,
+                                    ref.hit_metadata_update_ref_),
+            "ranked_eviction": (ranked_eviction, ref.ranked_eviction_ref),
+            "drop_scatter": (drop_scatter, ref.drop_scatter_ref)}
     for name, (k_fn, p_fn) in kern.items():
-        args, kw = shapes[(name, 2048)]
+        args, kw = timed.get(name, shapes[(name, 2048)])
         r = results.setdefault(name, {})
         r["ms"] = time_ms(lambda: k_fn(*args, **kw))
         r["plain_ms"] = time_ms(lambda: p_fn(*args, **kw))
@@ -405,17 +462,18 @@ def check_kernels(dev, results: dict) -> None:
             f"device ({r['eager_ms'] * 1e3:.2f} us launched from Python), "
             f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes']} bytes)")
-    # The fresh-output copy that hit_metadata_update makes of the three
-    # step-entry columns (the eviction reads them after the update): each
-    # column read once and written once.
+    # The functional form (the entry point's and the tests'; the cache
+    # step calls the in-place kernel): copies of the three columns, each
+    # read once and written once, then the kernel.
     r = results["hit_metadata_update"]
     r["copy_ms"] = time_ms(lambda: tuple(a.clone() for a in margs[:3]))
     r["copy_bound_ms"] = (2 * sum(a.numel() * a.element_size()
                                   for a in margs[:3]) / HBM_BYTES_PER_S * 1e3)
-    r["wrapper_ms"] = time_ms(lambda: hit_metadata_update(*margs))
-    log(f"hit_metadata_update's fresh-column copy: {r['copy_ms'] * 1e3:.2f} "
-        f"us, bound {r['copy_bound_ms'] * 1e3:.2f} us; copy and passes "
-        f"together {r['wrapper_ms'] * 1e3:.2f} us")
+    r["wrapper_ms"] = time_ms(lambda: ops.hit_metadata_update_op(*margs))
+    log(f"hit_metadata_update's functional form (entry point and tests "
+        f"only): its copy {r['copy_ms'] * 1e3:.2f} us, bound "
+        f"{r['copy_bound_ms'] * 1e3:.2f} us; copy and kernel together "
+        f"{r['wrapper_ms'] * 1e3:.2f} us")
     check_entry_point(dev, rng, t, dict(ins=ins, last=last, freq=freq), live,
                       probe_keys, results)
 
@@ -647,10 +705,19 @@ def bound_bytes(name: str, args, kw) -> int:
         B = keys.shape[0]
         return int(buckets.numel() * assoc * 4 * 8 + B * 8 + 8
                    + B * (1 + 8 + 1 + 8))
+    if name == "drop_scatter":
+        # The indices in; at each in-range entry its source rows in (a
+        # number reads nothing) and its destination rows out.
+        idx, cols, srcs = args
+        n_in = int(((idx >= 0) & (idx < cols[0].shape[0])).sum())
+        row = sum(c[0].numel() * c.element_size() for c in cols)
+        src_row = sum(c[0].numel() * c.element_size()
+                      for c, x in zip(cols, srcs) if torch.is_tensor(x))
+        return int(idx.numel() * 8 + n_in * (row + src_row))
     if name == "hit_metadata_update":
-        # The passes alone: the hit and emit arrays in; at each distinct
-        # hit slot its step-entry freq, last_ts and ext in and last_ts,
-        # ext out; at each distinct flush slot freq in and out.
+        # In place: the hit and emit arrays in; at each distinct hit slot
+        # its step-entry freq, last_ts and ext in and last_ts, ext out; at
+        # each distinct flush slot freq in and out.
         freq, last, ext, hit, hts, emit, delta = args
         hs = torch.unique(hit[hit >= 0]).numel()
         es = torch.unique(emit[emit >= 0]).numel()
@@ -711,7 +778,7 @@ def check_state(tag: str, res) -> None:
 
 
 def cache_launches() -> dict:
-    """The device launch counts of the cache's three kernels."""
+    """The device launch counts of the cache step's four kernels."""
     from repro_torch.kernels import ops
     n = ops.launches()
     return {k: n[k] for k in CACHE_KERNELS}
@@ -771,6 +838,7 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
                             evictions=int(r.stats.evictions),
                             peak_mib=peak / 2**20, launches=launches)
     compare_runs("grouped", res["fused"], res["reference"])
+    out["whole_column_ops"] = check_step_traffic(dev, cfg, gp)
     launches = out["fused"]["launches"]
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
@@ -835,11 +903,74 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
     return out, gp, k2[:T]
 
 
+def whole_column_ops(dev, cfg, gp) -> list:
+    """The operators of one eager grouped step (the plan's first group, on
+    a fresh cache of ``cfg``) whose result has a whole column's rows or
+    more, as (operator, shape).  The hand-written kernels are called
+    through ctypes, not as operators, so their in-place writes are not
+    among them; allocations (``empty``) move no bytes and are left out."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.core import make
+    from repro_torch.core.cache import access_group_
+
+    n = cfg.n_slots
+    seen = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if "empty" not in str(func):
+                seen.extend((str(func), tuple(t.shape))
+                            for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor) and t.dim()
+                            and t.shape[0] >= n)
+            return out
+
+    c = make(cfg, LANES, SEED, device=dev)
+    g = {k: torch.from_numpy(getattr(gp, k)[0].astype(
+        bool if k == "is_write" else "int64")).to(dev)
+        for k in ("keys", "is_write", "sizes")}
+    step = lambda: access_group_(cfg, c.state, c.clients, c.stats,
+                                 g["keys"], is_write=g["is_write"],
+                                 obj_size=g["sizes"])
+    step()                                     # builds and counters first
+    with Watch():
+        step()
+    return seen
+
+
+def check_step_traffic(dev, cfg, gp) -> dict:
+    """Phase 3's step check: the fused step returns no whole column but the
+    two of the ``bytes_cached`` reduction (``size == 255`` and the masked
+    sizes), so it moves no column through a clone, copy, concatenation or
+    fill; the reference step's whole-column operators are listed."""
+    import dataclasses
+    out = {}
+    for backend in ("fused", "reference"):
+        ops = whole_column_ops(dev, dataclasses.replace(cfg, backend=backend),
+                               gp)
+        out[backend] = ops
+        log(f"one eager {backend} step: {len(ops)} operators return a whole "
+            f"column ({cfg.n_slots} rows): "
+            + (", ".join(f"{o} {list(sh)}" for o, sh in ops) or "none"))
+    fused = [o for o, _ in out["fused"]]
+    if (len(fused) != 2 or not fused[0].startswith("aten.eq")
+            or not fused[1].startswith("aten.where")):
+        raise AssertionError(f"the fused step moves whole columns: "
+                             f"{out['fused']}")
+    log("the fused step: no whole-column clone, copy, concatenation or fill; "
+        "only the bytes_cached reduction reads the size column whole")
+    return out
+
+
 # Kernel-name groups for the profile summary (first match wins).
 PROFILE_GROUPS = (
     ("hand-written", ("access_probe_kernel", "ranked_eviction_kernel",
-                      "init_and_faa_kernel", "combine_kernel",
-                      "write_kernel(", "flash_bf16_kernel")),
+                      "hmu_init_kernel", "hmu_combine_faa_kernel",
+                      "hmu_write_kernel", "drop_scatter_kernel",
+                      "flash_bf16_kernel")),
     ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
     ("device copies", ("Memcpy DtoD", "memcpy", "direct_copy_kernel")),
     ("concatenation", ("CatArrayBatchedCopy",)),
@@ -849,6 +980,7 @@ PROFILE_GROUPS = (
     ("gather, scatter, index", ("scatter_gather", "index_elementwise",
                                 "index_kernel", "gather")),
     ("fills", ("FillFunctor",)),
+    ("sorts", ("radixSort", "RadixSort")),
 )
 
 
@@ -857,26 +989,39 @@ def profile_steps(dev, card: str, gp, trace, n_groups: int,
     """Trace the first n_groups steps of the grouped run under each
     backend with torch.profiler; print where the device time goes (per
     step, and the busy share of the wall) and, given ``out_dir``, write
-    the whole kernel table there."""
+    the whole kernel table there.  The window includes ``execute()``'s
+    copy of the carry into the step's graph and out again, once a
+    segment; a second window of twice the steps, less the first, gives
+    the step alone."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import CacheConfig, execute, make
 
-    sub = gp._replace(keys=gp.keys[:n_groups],
-                      is_write=gp.is_write[:n_groups],
-                      sizes=gp.sizes[:n_groups], src_t=gp.src_t[:n_groups])
+    def first(k):
+        return gp._replace(keys=gp.keys[:k], is_write=gp.is_write[:k],
+                           sizes=gp.sizes[:k], src_t=gp.src_t[:k])
+
     for backend in ("fused", "reference"):
         cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC,
                           capacity=CAPACITY, backend=backend)
         c = make(cfg, LANES, SEED, device=dev)
-        execute(c, trace, plan=sub)                 # build + allocator warm
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            r = execute(c, trace, plan=sub)
-        report_profile(prof, card, backend, n_groups, r.wall_s, out_dir)
+        execute(c, trace, plan=first(n_groups))     # build + allocator warm
+        cats = []
+        for k in (n_groups, 2 * n_groups):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                r = execute(c, trace, plan=first(k))
+            cats.append(report_profile(prof, card, backend, k, r.wall_s,
+                                       out_dir if k == n_groups else None))
+        step = {kind: (t - cats[0].get(kind, 0.0)) / n_groups
+                for kind, t in cats[1].items()}
+        log(f"    the step alone ({2 * n_groups} less {n_groups} steps), "
+            f"device {sum(step.values()):.0f} us/step; by kind, us/step: "
+            + ", ".join(f"{c} {t:.1f}" for c, t in
+                        sorted(step.items(), key=lambda x: -x[1])))
 
 
 def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
-                   out_dir: Path | None) -> None:
+                   out_dir: Path | None) -> dict:
     """Print where a traced window's device time goes (per step, and the
     busy share of the wall) and, given ``out_dir``, write the whole
     kernel table there.  Only device events count: run eagerly, a CPU
@@ -915,6 +1060,7 @@ def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
     log("    by kind, us/step: " + ", ".join(
         f"{c} {t / n_steps:.1f}" for c, t in
         sorted(cats.items(), key=lambda x: -x[1])))
+    return cats
 
 
 def profile_lm(dev, card: str, cfg, params, n_steps: int,
@@ -1369,7 +1515,7 @@ def run_engine(dev, card: str, cfg, params) -> dict:
 
 def replay_page_cache(dev, pc, lookups, launches) -> dict:
     """Phase 8's page-cache check: the engine's lookup stream again,
-    through a fresh page cache on the card with each launch of its three
+    through a fresh page cache on the card with each launch of its four
     kernels held against the plain version on the same inputs (at the
     engine's shapes: one key a lookup on a small table whose sample
     windows wrap), and through one on the CPU (the plain versions
@@ -1386,17 +1532,15 @@ def replay_page_cache(dev, pc, lookups, launches) -> dict:
         for i, (g, w) in enumerate(zip(got, want)):
             same_int(f"{tag}[{i}]", g, w)
 
-    def compare_meta(tag, got, want):
-        same_int(f"{tag}.freq", got[0], want[0])
-        same_int(f"{tag}.last_ts", got[1], want[1])
-        close_f32(f"{tag}.ext", got[2], want[2], 2)
+    def compare_cols(tag, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            (same_bits if g.is_floating_point() else same_int)(
+                f"{tag}[{i}]", g, w)
 
     checked = {k: 0 for k in CACHE_KERNELS}
     patches = []
     for name, plain, compare in (
             ("access_probe", ref.access_probe_ref, compare_ints),
-            ("hit_metadata_update", ref.hit_metadata_update_ref,
-             compare_meta),
             ("ranked_eviction", ref.ranked_eviction_ref, compare_ints)):
         def held(*args, _name=name, _op=getattr(ops, name + "_op"),
                  _plain=plain, _compare=compare, **kw):
@@ -1406,6 +1550,27 @@ def replay_page_cache(dev, pc, lookups, launches) -> dict:
             checked[_name] += 1
             return got
         patches.append(mock.patch.object(ops, name + "_op", held))
+
+    # The in-place two: the plain version runs on copies of the columns
+    # the kernel is about to write, and the two results must be equal.
+    def held_meta(*args, _op=ops.hit_metadata_update_op_):
+        want = tuple(a.clone() for a in args[:3])
+        ref.hit_metadata_update_ref_(*want, *args[3:])
+        _op(*args)
+        compare_cols("page cache hit_metadata_update launch "
+                     f"{checked['hit_metadata_update']}", args[:3], want)
+        checked["hit_metadata_update"] += 1
+
+    def held_scatter(idx, cols, srcs, _op=ops.drop_scatter_op_):
+        want = tuple(c.clone() for c in cols)
+        ref.drop_scatter_ref(idx, want, srcs)
+        _op(idx, cols, srcs)
+        compare_cols("page cache drop_scatter launch "
+                     f"{checked['drop_scatter']}", cols, want)
+        checked["drop_scatter"] += 1
+
+    patches += [mock.patch.object(ops, "hit_metadata_update_op_", held_meta),
+                mock.patch.object(ops, "drop_scatter_op_", held_scatter)]
 
     runs = {}
     for where in (dev, "cpu"):
@@ -1452,8 +1617,9 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=6_000_000)
     ap.add_argument("--out", default="")
     ap.add_argument("--profile", type=int, default=0,
-                    help="also trace this many grouped steps per backend, "
-                         "one yi-9b prefill and 8 decode steps")
+                    help="also trace this many grouped steps per backend "
+                         "and twice as many (the difference is the step "
+                         "alone), one yi-9b prefill and 8 decode steps")
     a = ap.parse_args()
 
     if not (SRC / "repro_torch").is_dir():
@@ -1508,7 +1674,9 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention.py:88",
         "sampled_eviction": "src/repro/kernels/sampled_eviction.py:251",
         "bucket_lookup": "src/repro/kernels/bucket_lookup.py:98",
-        "metadata_update": "src/repro/kernels/metadata_update.py:184"}
+        "metadata_update": "src/repro/kernels/metadata_update.py:184",
+        # No Pallas kernel: XLA's in-place drop-mode scatters of the apply.
+        "drop_scatter": "src/repro/core/cache.py:636"}
     extra = ("eager_ms", "copy_ms", "copy_bound_ms", "wrapper_ms",
              "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
              "row_err_32k", "controls", "layer_row_err", "ms_pairs",

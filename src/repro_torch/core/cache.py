@@ -8,21 +8,26 @@ frequency-counter (FC) cache flush, regret collection and the expert
 weights, read-through inserts, the sampled ranked eviction, then the
 apply and the ``OpStats`` metering.  Round r runs at logical time
 ``clock + r``.  ``backend="fused"`` routes the probe, the metadata
-update and the eviction decision through ``kernels/ops.py`` (the CUDA
-kernels on the card); ``backend="reference"`` computes them in plain
-torch.  Both make the same decisions.
+update, the eviction decision and the apply's writes through
+``kernels/ops.py`` (the CUDA kernels on the card);
+``backend="reference"`` computes them in plain torch.  Both make the
+same decisions.
 
 Port notes:
 
 * u32 columns are int64 (``core/types.py``); wrapping adds are masked.
+* The step writes the table in place (:func:`access_group_`), as XLA
+  does JAX's ``.at[].set(mode="drop")`` updates: it reads the step-entry
+  table first, then writes only the slots it touches, in the JAX
+  package's order.  :func:`access_group` is the functional form (copies
+  of the written columns, then the in-place step).
 * The step issues no host sync and no upload: no ``.item()``, no
   boolean-mask indexing, no Python branch on a tensor value, no tensor
-  made from host data.  Scatters whose JAX form drops an out-of-range
-  index write into one padding element instead.  That lets the trace
-  drivers replay a step as a CUDA graph on the card (``_scan``).
+  made from host data.  That lets the trace drivers replay a step as a
+  CUDA graph on the card (``_scan``).
 * Duplicate-index writes resolve explicitly: SET payloads and sizes are
-  last-writer-wins (highest request position per slot, by
-  ``scatter_reduce(amax)``); every other scatter target is unique, or
+  last-writer-wins (highest request position per slot, from a stable
+  sort of the step's indices); every other scatter target is unique, or
   its duplicates write equal values.
 * Float sums whose order matters (per-lane penalties, the synced
   penalty total) are taken as sequential scans (``cumsum``), in request
@@ -49,6 +54,7 @@ from repro_torch.core.types import (SIZE_EMPTY, SIZE_HISTORY, CacheConfig,
                                     stats_add)
 from repro_torch.core.u32 import M32
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 I64 = torch.int64
 F32 = torch.float32
@@ -136,33 +142,24 @@ def _seqsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=0)[-1]
 
 
-def _padded(col: torch.Tensor) -> torch.Tensor:
-    """A copy of ``col`` with one trailing element that absorbs writes to
-    the out-of-range index ``len(col)``."""
-    return torch.cat([col, col.new_zeros((1,) + tuple(col.shape[1:]))])
-
-
-def _set(col: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
-    """``col.at[idx].set(src, mode="drop")`` for indices in [0, n] whose
-    in-range entries are unique (or write equal values).  A Python
-    scalar ``src`` is filled in place, with no upload to the device."""
-    out = _padded(col)
-    if torch.is_tensor(src):
-        out[idx] = src
+def _run_edges(idx: torch.Tensor, last: bool = False) -> torch.Tensor:
+    """bool[B]: True for the first (``last``: the last) entry, in index
+    order, of each distinct value of ``idx`` (a stable sort of the B
+    entries, on 32-bit keys: slots and buckets fit, and the radix sort
+    takes half the passes; no scratch column the size of the table)."""
+    s, order = torch.sort(idx.to(torch.int32), stable=True)
+    edge = torch.ones_like(s, dtype=torch.bool)
+    if last:
+        edge[:-1] = s[:-1] != s[1:]
     else:
-        out.index_fill_(0, idx, src)
-    return out[:col.shape[0]]
+        edge[1:] = s[1:] != s[:-1]
+    return torch.empty_like(edge).scatter_(0, order, edge)
 
 
-def _lww_set(col: torch.Tensor, idx: torch.Tensor,
-             src: torch.Tensor) -> torch.Tensor:
-    """``_set`` with duplicate indices resolved last-writer-wins: only the
-    highest request position per slot writes."""
-    n = col.shape[0]
-    pos = torch.arange(idx.shape[0], device=idx.device)
-    last = torch.full((n + 1,), -1, dtype=I64, device=idx.device)
-    last = last.scatter_reduce(0, idx, pos, "amax")
-    return _set(col, torch.where(last[idx] == pos, idx, n), src)
+def _lww_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` with every entry but the last (highest request position)
+    of each slot set to the dropped index ``n``: last-writer-wins."""
+    return torch.where(_run_edges(idx, last=True), idx, n)
 
 
 def _choose_expert(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -180,28 +177,40 @@ def apply_penalties(weights: torch.Tensor, penalties: torch.Tensor,
     return w / w.sum(dim=-1, keepdim=True)
 
 
-def _first_winner(x: torch.Tensor, valid: torch.Tensor,
-                  domain: int) -> torch.Tensor:
+def _first_winner(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """bool[B]: True for the first occurrence of each distinct value of x
-    in [0, domain) among valid lanes (the earliest request wins)."""
-    B = x.shape[0]
-    pos = torch.arange(B, device=x.device)
-    tgt = torch.where(valid, x, domain)
-    best = torch.full((domain + 1,), B, dtype=I64, device=x.device)
-    best = best.scatter_reduce(0, tgt, pos, "amin")
-    return valid & (best[torch.where(valid, x, 0)] == pos)
+    among valid lanes (the earliest request wins)."""
+    return valid & _run_edges(torch.where(valid, x, -1))
+
+
+# The table columns the step writes (in place in access_group_).
+WRITTEN = ("key", "key_hash", "size", "ptr", "insert_ts", "last_ts", "freq",
+           "ext", "values")
 
 
 def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
-                 stats: OpStats, keys: torch.Tensor, *,
-                 is_write: torch.Tensor | None = None,
-                 obj_size: torch.Tensor | None = None,
-                 values: torch.Tensor | None = None,
-                 tenant: torch.Tensor | None = None,
-                 insert_on_miss: bool = True,
-                 shadow: torch.Tensor | None = None,
+                 stats: OpStats, keys: torch.Tensor, **kw
                  ) -> Tuple[CacheState, ClientState, OpStats, AccessResult]:
-    """One batched cache step over a [G, C] request group.
+    """One batched cache step over a [G, C] request group, functional:
+    the caller's tensors stay as they are.  :func:`access_group_` on
+    copies of the columns the step writes; the same arguments."""
+    state = state._replace(**{f: getattr(state, f).clone() for f in WRITTEN})
+    return access_group_(cfg, state, clients, stats, keys, **kw)
+
+
+def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
+                  stats: OpStats, keys: torch.Tensor, *,
+                  is_write: torch.Tensor | None = None,
+                  obj_size: torch.Tensor | None = None,
+                  values: torch.Tensor | None = None,
+                  tenant: torch.Tensor | None = None,
+                  insert_on_miss: bool = True,
+                  shadow: torch.Tensor | None = None,
+                  ) -> Tuple[CacheState, ClientState, OpStats, AccessResult]:
+    """One batched cache step over a [G, C] request group, in place: the
+    table columns of ``state`` (``WRITTEN``) take the step's writes, and
+    the returned state holds those very tensors.  The caller owns them;
+    ``clients`` and ``stats`` are not written.
 
     Args:
       keys: u32[G, C]; 0 marks a padded no-op lane.
@@ -239,7 +248,7 @@ def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
     op = keys_b != 0
     is_write = is_write.reshape(B)
     obj_size = torch.clamp(obj_size.reshape(B).to(I64), 1, SIZE_HISTORY - 1)
-    values = values.reshape(B, cfg.value_words).to(I64)
+    values = values.reshape(B, cfg.value_words).to(I64).contiguous()
 
     clock = state.clock
     ts_round = (clock + torch.arange(G, device=dev)) & M32        # [G]
@@ -295,21 +304,16 @@ def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
 
     upd_idx = torch.where(hit, slot, n_slots)
     slot0 = torch.clamp(slot, min=0)
-    if fused:
-        freq, last_ts, ext = kops.hit_metadata_update_op(
-            state.freq, state.last_ts, state.ext, slot_hit, ts_req,
-            emit_slot.contiguous(), emit_delta.contiguous())
-    else:
+    emit_slot = emit_slot.contiguous()
+    emit_delta = emit_delta.contiguous()
+    if not fused:
+        # The plain update's rows, from the step-entry columns (written in
+        # step 6 with the FAA): ts_eff is the max hit timestamp on a slot.
         eff = state.clock.new_zeros((n_slots + 1,)).scatter_reduce(
-            0, upd_idx, ts_req, "amax")
-        new_ext = prio.update_ext(state.ext[slot0], state.last_ts[slot0],
-                                  state.freq[slot0], eff[slot0])
-        last_ts = _padded(state.last_ts).scatter_reduce(
-            0, upd_idx, ts_req, "amax")[:n_slots]
-        ext = _set(state.ext, upd_idx, new_ext)
-        eidx = torch.where(emit_slot >= 0, emit_slot, n_slots)
-        freq = (_padded(state.freq).index_add(0, eidx, emit_delta)[:n_slots]
-                & M32)
+            0, upd_idx, ts_req, "amax")[slot0]
+        hit_last = torch.maximum(state.last_ts[slot0], eff)
+        hit_ext = prio.update_ext(state.ext[slot0], state.last_ts[slot0],
+                                  state.freq[slot0], eff)
 
     # 3. Regret collection + lazy expert-weight update (§4.3.2).
     hslot0 = torch.clamp(hslot, min=0)
@@ -347,7 +351,7 @@ def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
 
     # 4. Inserts: read-through on miss, one per bucket per step.
     want_insert = miss & (is_write | insert_on_miss)
-    winner = _first_winner(bucket, want_insert, cfg.n_buckets)
+    winner = _first_winner(bucket, want_insert)
     dropped = want_insert & ~winner
 
     free = (b_size == SIZE_EMPTY) | (is_hist & ~h_valid)     # [B, A]
@@ -419,15 +423,9 @@ def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
         victims_2d = torch.stack(vs, dim=1)                   # [B, K]
     V = victims_2d.shape[1]
     victims = victims_2d.reshape(-1)                          # [B*V]
-    ev_winner = _first_winner(victims, victims >= 0, n_slots)
+    ev_winner = _first_winner(victims, victims >= 0)
     n_evict = ev_winner.sum()
     evicting = must_evict & (victims_2d >= 0).any(dim=1)
-
-    # SET payload/size writes, last-writer-wins within the group.
-    set_ok = hit & is_write
-    val_idx = torch.where(set_ok, slot, n_slots)
-    vals = _lww_set(state.values, val_idx, values)
-    sizes_upd = _lww_set(state.size, val_idx, obj_size)
 
     # Expert bitmap per victim: matching candidates + the chosen expert.
     cand_rep = _repeat(cand_slot, V)                          # [B*V, E]
@@ -451,38 +449,50 @@ def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
     hist_ids = (state.hist_ctr + hist_rank) & M32
     n_hist = write_hist.sum()
 
-    # 6. Apply: inserts, then evictions.
-    ii = torch.where(ins_ok, ins_slot, n_slots)
-    key2 = _set(state.key, ii, keys_b)
-    khash2 = _set(state.key_hash, ii, kh)
-    sizes3 = _set(sizes_upd, ii, obj_size)
-    ptr3 = _set(state.ptr, ii, 0)
-    ins_ts3 = _set(state.insert_ts, ii, ts_req)
-    last_ts = _set(last_ts, ii, ts_req)
-    freq = _set(freq, ii, 1)
-    ext = _set(ext, ii, prio.fresh_ext(ts_req, (B,)))
-    vals = _set(vals, ii, values)
-
-    ev_idx = torch.where(ev_winner, victims, n_slots)
-    sizes3 = _set(sizes3, ev_idx, torch.where(write_hist, SIZE_HISTORY,
-                                              SIZE_EMPTY))
-    ptr3 = _set(ptr3, ev_idx, torch.where(write_hist, hist_ids, 0))
-    ins_ts3 = _set(ins_ts3, ev_idx, bmap)
-
-    n_cached = state.n_cached + plain.sum() + fallback_hist.sum() - n_evict
-    bytes_cached = torch.where(_is_live(sizes3), sizes3, 0).sum()
     result_vals = state.values[slot0]
 
-    new_state = CacheState(
-        key=key2, key_hash=khash2, size=sizes3, ptr=ptr3,
-        insert_ts=ins_ts3, last_ts=last_ts, freq=freq, ext=ext, values=vals,
+    # 6. Apply, in place and in the JAX package's order: the hit metadata,
+    #    SET payloads and sizes (last writer wins within the group),
+    #    inserts, then evictions (so a victim that collides with a
+    #    bucket-fallback overwrite target nets out exactly in n_cached).
+    #    Every read of the step-entry table is above this point.
+    if fused:
+        kops.hit_metadata_update_op_(state.freq, state.last_ts, state.ext,
+                                     slot_hit, ts_req, emit_slot, emit_delta)
+        write = kops.drop_scatter_op_
+    else:
+        write = kref.drop_scatter_ref
+        write(upd_idx, (state.last_ts, state.ext), (hit_last, hit_ext))
+        # The FC-flush FAA: a no-op emit adds 0 to slot 0; then the u32
+        # wrap at the slots it touched.
+        state.freq.index_add_(0, torch.clamp(emit_slot, min=0),
+                              torch.where(emit_slot >= 0, emit_delta, 0))
+        write(emit_slot, (state.freq,),
+              (state.freq[torch.clamp(emit_slot, min=0)] & M32,))
+    set_idx = torch.where(hit & is_write, slot, n_slots)
+    write(_lww_idx(set_idx, n_slots), (state.values, state.size),
+          (values, obj_size))
+    write(torch.where(ins_ok, ins_slot, n_slots),
+          tuple(getattr(state, f) for f in WRITTEN),
+          (keys_b, kh, obj_size, 0, ts_req, ts_req, 1,
+           prio.fresh_ext(ts_req, (B,)), values))
+    write(torch.where(ev_winner, victims, n_slots),
+          (state.size, state.ptr, state.insert_ts),
+          (torch.where(write_hist, SIZE_HISTORY, SIZE_EMPTY),
+           torch.where(write_hist, hist_ids, 0), bmap))
+
+    n_cached = state.n_cached + plain.sum() + fallback_hist.sum() - n_evict
+    # Byte occupancy, recomputed exactly from the final size column: the
+    # one whole-column read of the step, as in the JAX package.  Empty
+    # slots hold size 0, so only history entries are masked.
+    bytes_cached = torch.where(state.size == SIZE_HISTORY, 0,
+                               state.size).sum()
+
+    new_state = state._replace(
         n_cached=n_cached, bytes_cached=bytes_cached,
         hist_ctr=(state.hist_ctr + n_hist) & M32,
         clock=(clock + G) & M32, weights=gw[0], gds_L=gds_L,
-        capacity_blocks=state.capacity_blocks,
-        tenant=state.tenant, tenant_bytes=bytes_cached[None],
-        tenant_budget=state.tenant_budget,
-        bucket_ver=state.bucket_ver, l0_epoch=state.l0_epoch)
+        tenant_bytes=bytes_cached[None])
     new_clients = clients._replace(local_weights=local_w[:, 0],
                                    penalty_acc=pacc[:, 0],
                                    penalty_cnt=pcnt[:, 0])
@@ -613,7 +623,10 @@ def _sig(tensors) -> tuple:
 def _captured_step(step, key, carry, xs) -> _Captured:
     """The graph of ``step`` for this key and these shapes, captured at
     first use: it reads a private copy of the carry and one element of
-    ``xs``, and overwrites the copy with the step's result."""
+    ``xs``, and overwrites the copy with the step's result.  A step that
+    works in place returns leaves of the copy itself (the table columns):
+    those need no copy back; the rest (0-d counters, the client state)
+    are copied."""
     dev = xs[0].device
     k = (key, dev, _sig(_leaves(carry)), _sig(x[0] for x in xs))
     if k in _GRAPHS:
@@ -653,11 +666,16 @@ def _scan(step, carry, xs, key):
     the step, and a replay costs one launch instead of the step's
     thousand-odd operator launches.  The graph works on its own copy of
     the carry; the caller's tensors are copied in and the result copied
-    out, so neither is shared with the graph."""
+    out, so neither is shared with the graph.
+
+    ``step`` may write its carry in place (``access_group_``): on the CPU
+    the loop runs on one copy of the caller's carry, made before it, and
+    on the card on the graph's own; no caller's tensor is written."""
     n = xs[0].shape[0]
     if n == 0:
         return carry, None
     if xs[0].device.type != "cuda":
+        carry = _rebuild(carry, [t.clone() for t in _leaves(carry)])
         ys = []
         for i in range(n):
             carry, y = step(carry, tuple(x[i] for x in xs))
@@ -692,13 +710,12 @@ def _run_trace_impl(cfg: CacheConfig, state: CacheState,
                     obj_size: torch.Tensor | None = None,
                     tenant: torch.Tensor | None = None) -> TraceResult:
     """Run a [T, C] trace, one round per step."""
-    T, C = keys.shape
 
     def step(carry, xs):
         st, cl, sa = carry
-        k, w, sz, tn = xs
-        st, cl, sa, res = access(cfg, st, cl, sa, k, is_write=w,
-                                 obj_size=sz, tenant=tn)
+        k, w, sz, tn = (x[None] for x in xs)
+        st, cl, sa, res = access_group_(cfg, st, cl, sa, k, is_write=w,
+                                        obj_size=sz, tenant=tn)
         return (st, cl, sa), (res.hit.sum(), (k != 0).sum(), st.weights)
 
     (state, clients, stats), ys = _scan(
@@ -722,8 +739,8 @@ def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
     def step(carry, xs):
         st, cl, sa = carry
         k, w, sz, tn = xs
-        st, cl, sa, res = access_group(cfg, st, cl, sa, k, is_write=w,
-                                       obj_size=sz, tenant=tn)
+        st, cl, sa, res = access_group_(cfg, st, cl, sa, k, is_write=w,
+                                        obj_size=sz, tenant=tn)
         return (st, cl, sa), (res.hit.sum(dim=1), (k != 0).sum(dim=1),
                               st.weights)
 
@@ -745,5 +762,7 @@ def _empty_ys(cfg: CacheConfig, dev, round_shape) -> tuple:
 
 
 def make_cache(cfg: CacheConfig, n_clients: int, seed: int = 0, device=None):
+    """A fresh (state, clients, stats) on ``device`` (default: the card;
+    raises without one)."""
     return (init_cache(cfg, device), init_clients(cfg, n_clients, seed, device),
             init_stats(device))

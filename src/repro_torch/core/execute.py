@@ -31,7 +31,7 @@ from repro_torch.core.cache import (TraceResult, _run_trace_grouped_impl,
                                     _run_trace_impl, make_cache)
 from repro_torch.core.types import (CacheConfig, CacheState, ClientState,
                                     ExecConfig, OpStats, hit_ratio,
-                                    merge_exec_config)
+                                    merge_exec_config, on_device)
 from repro_torch.workloads.plan import (GroupPlan, PlanCostModel, Segment,
                                         SegmentSchedule, pack_rows,
                                         plan_adaptive, plan_groups)
@@ -61,12 +61,8 @@ def make(cfg: CacheConfig, n_clients: int, seed: int = 0,
     """A fresh :class:`Cache`: an empty pool per ``cfg`` plus
     ``n_clients`` client lanes, on ``device`` (default: the card).
     Raises if the device is the card and there is none."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "make(): no CUDA device is present; pass device='cpu' to build "
-            "the cache on the CPU")
-    state, clients, stats = make_cache(cfg, n_clients, seed, device)
+    state, clients, stats = make_cache(cfg, n_clients, seed,
+                                       on_device(device, "make()"))
     return Cache(cfg, state, clients, stats)
 
 

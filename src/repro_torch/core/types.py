@@ -17,7 +17,9 @@ left for later work.
 ``state_from_numpy`` / ``state_to_numpy`` (and the ``clients_*`` /
 ``stats_*`` pairs) carry the JAX package's pytrees, as numpy arrays,
 into this package's tensors on a given device and back, with the JAX
-dtypes restored on the way out.
+dtypes restored on the way out.  Every constructor here builds on the
+card unless the caller names a device (``device="cpu"``), and raises
+where there is no card.
 """
 
 from __future__ import annotations
@@ -237,11 +239,22 @@ def _weight_shape(cfg: CacheConfig) -> tuple:
     return (cfg.n_experts,)
 
 
+def on_device(device, who: str) -> torch.device:
+    """``device``, or the card when it is None; raises if that is the card
+    and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device is present; pass "
+                           "device='cpu' to build on the CPU")
+    return device
+
+
 def _i64(shape, device, fill=0):
     return torch.full(shape, fill, dtype=torch.int64, device=device)
 
 
 def init_cache(cfg: CacheConfig, device=None) -> CacheState:
+    device = on_device(device, "init_cache")
     n = cfg.n_slots
     return CacheState(
         key=_i64((n,), device), key_hash=_i64((n,), device),
@@ -267,6 +280,7 @@ def init_cache(cfg: CacheConfig, device=None) -> CacheState:
 
 def init_clients(cfg: CacheConfig, n_clients: int, seed: int = 0,
                  device=None) -> ClientState:
+    device = on_device(device, "init_clients")
     f, e, l0 = cfg.fc_size, cfg.n_experts, cfg.l0_entries
     wshape = (n_clients,) + _weight_shape(cfg)
     cnt_shape = (n_clients, cfg.n_tenants) if cfg.n_tenants > 1 \
@@ -291,6 +305,7 @@ def init_clients(cfg: CacheConfig, n_clients: int, seed: int = 0,
 
 
 def init_stats(device=None) -> OpStats:
+    device = on_device(device, "init_stats")
     return OpStats(*[_i64((), device) for _ in OpStats._fields])
 
 
@@ -329,6 +344,7 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 
 def _from_numpy(cls, tree, device):
+    device = on_device(device, f"{cls.__name__} from numpy")
     return cls(*[_to_tensor(getattr(tree, f), device) for f in cls._fields])
 
 
@@ -339,7 +355,8 @@ def _to_numpy(tree, dtypes) -> dict:
 
 def state_from_numpy(tree, device=None) -> CacheState:
     """Any object with the CacheState fields (the JAX pytree, or numpy
-    arrays of it) -> a CacheState of tensors on ``device``."""
+    arrays of it) -> a CacheState of tensors on ``device`` (default: the
+    card)."""
     return _from_numpy(CacheState, tree, device)
 
 

@@ -1,8 +1,10 @@
-"""The op wrappers of the hand-written kernels: the three cache kernels
-of ``core.access``, the flash-attention kernel of the LM prefill, and the
-three cache kernels that only this entry point reaches
-(``sampled_eviction_op``, ``bucket_lookup_op``, ``metadata_update_op``,
-the JAX package's ``repro.kernels.ops`` forms).
+"""The op wrappers of the hand-written kernels: the four cache kernels
+of ``core.access`` (the probe, the in-place hit-metadata update, the
+ranked eviction and the apply's ``drop_scatter``), the flash-attention
+kernel of the LM prefill, and the three cache kernels that only this
+entry point reaches (``sampled_eviction_op``, ``bucket_lookup_op``,
+``metadata_update_op``, the JAX package's ``repro.kernels.ops`` forms).
+A trailing underscore marks an op that updates its arguments in place.
 
 Each wrapper checks its arguments (dtype, device, shape, contiguity) and
 dispatches on the device of the tensors it is given: CPU tensors go to
@@ -25,15 +27,17 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.bucket_lookup import access_probe, bucket_lookup
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.metadata_update import (hit_metadata_update,
+from repro_torch.kernels.metadata_update import (hit_metadata_update_,
                                                  metadata_update)
 from repro_torch.kernels.runtime import launch_counts as launches
 from repro_torch.kernels.runtime import reset_counts as reset_launches
 from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS, MAX_SAMPLES,
                                                   ranked_eviction,
                                                   sampled_eviction)
+from repro_torch.kernels.scatter import MAX_COLS, drop_scatter
 
-__all__ = ["access_probe_op", "hit_metadata_update_op", "ranked_eviction_op",
+__all__ = ["access_probe_op", "hit_metadata_update_op",
+           "hit_metadata_update_op_", "ranked_eviction_op", "drop_scatter_op_",
            "flash_attention_op", "sampled_eviction_op", "bucket_lookup_op",
            "metadata_update_op", "KERNEL_EXPERTS", "launches",
            "reset_launches"]
@@ -104,10 +108,10 @@ def access_probe_op(table_key, table_size, table_hash, table_ptr, keys,
                      *args, assoc=assoc, history_len=history_len)
 
 
-def hit_metadata_update_op(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
-                           emit_deltas):
-    """Hit-slot last_ts/ext update and FC-flush freq FAA, into fresh
-    (freq, last_ts, ext) tensors."""
+def hit_metadata_update_op_(freq, last_ts, ext, hit_slots, hit_ts,
+                            emit_slots, emit_deltas) -> None:
+    """Hit-slot last_ts/ext update and FC-flush freq FAA, in place in
+    (freq, last_ts, ext); the ext update reads their step-entry values."""
     dev = freq.device
     n, bh, be = freq.shape[0], hit_slots.shape[0], emit_slots.shape[0]
     _check("hit_metadata_update", dev, freq=(freq, I64, (n,)),
@@ -116,8 +120,47 @@ def hit_metadata_update_op(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
            emit_slots=(emit_slots, I64, (be,)),
            emit_deltas=(emit_deltas, I64, (be,)))
     args = (freq, last_ts, ext, hit_slots, hit_ts, emit_slots, emit_deltas)
-    return _dispatch("hit_metadata_update", dev, hit_metadata_update,
-                     ref.hit_metadata_update_ref, *args)
+    _dispatch("hit_metadata_update", dev, hit_metadata_update_,
+              ref.hit_metadata_update_ref_, *args)
+
+
+def hit_metadata_update_op(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
+                           emit_deltas):
+    """:func:`hit_metadata_update_op_` into fresh (freq, last_ts, ext)
+    tensors, as the JAX op returns them; the inputs stay as they are."""
+    out = (freq.clone(), last_ts.clone(), ext.clone())
+    hit_metadata_update_op_(*out, hit_slots, hit_ts, emit_slots, emit_deltas)
+    return out
+
+
+def drop_scatter_op_(idx, cols, srcs) -> None:
+    """In place, for each column of ``cols`` (all of one length n, [n] or
+    [n, W], int64 or f32): ``col[idx[b]] = src[b]`` where
+    ``0 <= idx[b] < n``, and nothing for any other index (``idx`` i64[B]).
+    Each ``src`` is a [B] or [B, W] tensor of its column's dtype, or an
+    integer written to every such row of an int64 column.  In-range
+    indices must be unique, or their entries write equal rows."""
+    dev = idx.device
+    B = idx.shape[0]
+    if not 0 < len(cols) == len(srcs) <= MAX_COLS:
+        raise ValueError(f"drop_scatter: {len(cols)} columns and "
+                         f"{len(srcs)} sources (1 to {MAX_COLS} of each)")
+    n = cols[0].shape[0]
+    spec = dict(idx=(idx, I64, (B,)))
+    for k, (col, src) in enumerate(zip(cols, srcs)):
+        if col.dtype not in (I64, F32) or col.dim() not in (1, 2):
+            raise TypeError(f"drop_scatter: column {k} is {col.dtype} of "
+                            f"{col.dim()} dims (int64 or f32, 1 or 2 dims)")
+        row = tuple(col.shape[1:])
+        spec[f"col{k}"] = (col, col.dtype, (n,) + row)
+        if torch.is_tensor(src):
+            spec[f"src{k}"] = (src, col.dtype, (B,) + row)
+        elif not (isinstance(src, numbers.Integral) and col.dtype == I64):
+            raise TypeError(f"drop_scatter: source {k} must be a tensor, or "
+                            "an integer for an int64 column")
+    _check("drop_scatter", dev, **spec)
+    _dispatch("drop_scatter", dev, drop_scatter, ref.drop_scatter_ref, idx,
+              tuple(cols), tuple(srcs))
 
 
 def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,

@@ -114,6 +114,41 @@ def hit_metadata_update_ref(freq, last_ts, ext, hit_slots, hit_ts,
     return freq2, last2, ext2
 
 
+def hit_metadata_update_ref_(freq, last_ts, ext, hit_slots, hit_ts,
+                             emit_slots, emit_deltas) -> None:
+    """:func:`hit_metadata_update_ref` in place: ``freq``, ``last_ts`` and
+    ``ext`` take its results."""
+    for col, new in zip((freq, last_ts, ext), hit_metadata_update_ref(
+            freq, last_ts, ext, hit_slots, hit_ts, emit_slots, emit_deltas)):
+        col.copy_(new)
+
+
+def drop_scatter_ref(idx, cols, srcs) -> None:
+    """In place, for each column: ``col[idx[b]] = src[b]`` (a row of the
+    tensor ``src``, or the number ``src``) where ``0 <= idx[b] < n``, the
+    columns' common length; other entries write nothing.  In-range indices
+    are unique, or their entries write equal rows.
+
+    No host sync, so a CUDA graph can hold it: an out-of-range entry
+    repeats the first in-range entry's write, or, where no entry is in
+    range, writes row 0's own value back."""
+    n, B = cols[0].shape[0], idx.shape[0]
+    if B == 0:
+        return
+    ok = (idx >= 0) & (idx < n)
+    # [1]-shaped gathers: a 0-d index tensor would be read on the host.
+    j = ok.to(torch.int32).argmax().reshape(1)
+    any_ok = ok.index_select(0, j)
+    tgt = torch.where(ok, idx, torch.where(any_ok, idx.index_select(0, j), 0))
+    for col, src in zip(cols, srcs):
+        if not torch.is_tensor(src):
+            src = col.new_full((B,) + tuple(col.shape[1:]), src)
+        row = (1,) * (col.dim() - 1)
+        keep = torch.where(any_ok.reshape((1,) + row),
+                           src.index_select(0, j), col[:1])
+        col[tgt] = torch.where(ok.reshape((B,) + row), src, keep)
+
+
 def metadata_update_ref(freq, last_ts, slots, deltas, clock):
     """Combining metadata update into fresh f32 tensors: at every slot s
     named by an entry with 0 <= s < C, ``freq[s] += Σ deltas`` and

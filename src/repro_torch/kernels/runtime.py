@@ -45,8 +45,7 @@ F = ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as void*).
 SIGNATURES = {
     "access_probe_launch": [P, P, P, P, P, P, I, I, L, L, P, P, P, P, P, P],
-    "hit_metadata_update_launch": [P, P, P, P, P, I, P, P, I, P, P, P, P, P,
-                                   P, P],
+    "hit_metadata_update_launch": [P, P, P, P, P, I, P, P, I, P, P, P, P, P],
     "ranked_eviction_launch": [P, P, P, P, P, L, P, P, P, P, I, P, P, P, I, I,
                                I, I, P, P, P, P],
     "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L,
@@ -55,10 +54,11 @@ SIGNATURES = {
                                 P, P],
     "bucket_lookup_launch": [P, P, P, I, I, L, P, P, P, P],
     "metadata_update_launch": [P, P, I, L, P, P, P, F, P, P, P, P, P, P],
+    "drop_scatter_launch": [P, I, L, I, P, P, P, P, P, P, P],
 }
 KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction",
            "flash_attention", "sampled_eviction", "bucket_lookup",
-           "metadata_update")
+           "metadata_update", "drop_scatter")
 
 _LIB = None
 _COUNTERS: dict = {}   # device -> int64[len(KERNELS)] launch counts

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import (CacheConfig, access, init_cache, init_clients,
                               init_stats)
+from repro_torch.core.types import on_device
 
 
 def prefix_page_keys(tokens: np.ndarray, page_size: int) -> np.ndarray:
@@ -52,10 +53,7 @@ class DittoPageCache:
     def __init__(self, n_pages: int, page_size: int, *,
                  experts=("lru", "lfu"), n_clients: int = 1, seed: int = 0,
                  device=None):
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("DittoPageCache: no CUDA device is present; "
-                               "pass device='cpu' to run on the CPU")
+        self.device = on_device(device, "DittoPageCache")
         n_buckets = max(64, int(2 * n_pages // 8))
         self.cfg = CacheConfig(
             n_buckets=n_buckets, assoc=8, capacity=n_pages,

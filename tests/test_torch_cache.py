@@ -147,8 +147,9 @@ def test_duplicate_sets_in_one_group_are_last_writer_wins(backend):
     js2, jc2, jst2, jres = step(
         js, jc, jst, jnp.asarray(keys), is_write=jnp.asarray(wr),
         obj_size=jnp.asarray(size), values=jnp.asarray(vals))
-    ts, tc = t_types.state_from_numpy(js), t_types.clients_from_numpy(jc)
-    tst = t_types.stats_from_numpy(jst)
+    ts = t_types.state_from_numpy(js, "cpu")
+    tc = t_types.clients_from_numpy(jc, "cpu")
+    tst = t_types.stats_from_numpy(jst, "cpu")
     t64 = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64))
     ts2, tc2, tst2, tres = t_cache.access_group(
         cfg_t, ts, tc, tst, t64(keys), is_write=torch.from_numpy(wr),
@@ -162,6 +163,106 @@ def test_duplicate_sets_in_one_group_are_last_writer_wins(backend):
     slot5 = int(np.nonzero(got["key"] == 5)[0][0])
     assert list(got["values"][slot5]) == list(vals[2, 3])
     assert got["size"][slot5] == size[2, 3]
+
+
+def _snapshot(*parts) -> list:
+    return [t_types.state_to_numpy(parts[0]),
+            t_types.clients_to_numpy(parts[1]),
+            t_types.stats_to_numpy(parts[2])]
+
+
+def _same_snapshots(x, y) -> bool:
+    return all(np.array_equal(a[f], b[f]) for a, b in zip(x, y) for f in a)
+
+
+# f32 columns that compound the exp/pow rounding of every lazy weight sync
+# (XLA and PyTorch differ in the last place a call): held to 16 ulp per
+# step, as tests/test_torch_cuda.py holds them; ext and gds_L to 4.
+_COMPOUNDED = ("weights", "local_weights", "penalty_acc")
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_in_place_step_matches_functional_step_and_jax(backend):
+    """``access_group_`` (in place), ``access_group`` (functional) and
+    the JAX step, group by group on one seeded YCSB-A trace of [4, 8]
+    groups run past the table's fill: the in-place step returns the very
+    column tensors it was given, the functional one leaves its inputs as
+    they were, the two agree bit for bit, and both agree with JAX
+    (integers bit-equal, ext and gds_L within 4 ulp, the expert weights
+    within 16).  Evictions, bucket fallbacks
+    and duplicate SETs on one slot within a group all happen."""
+    cfg_j, cfg_t = _cfgs(backend, value_words=2)
+    G = 4
+    keys, wr = _trace("A", n=2048, seed=5)
+    NG = keys.shape[0] // G
+    keys, wr = keys[:NG * G].reshape(NG, G, C), wr[:NG * G].reshape(NG, G, C)
+    rng = np.random.default_rng(5)
+    size = rng.integers(1, 4, keys.shape).astype(np.uint32)
+    vals = rng.integers(0, 2**32, keys.shape + (2,), dtype=np.uint64
+                        ).astype(np.uint32)
+    step = jax.jit(functools.partial(j_cache.access_group, cfg_j))
+    j = j_cache.make_cache(cfg_j, C, 0)
+    inplace = t_cache.make_cache(cfg_t, C, 0, "cpu")
+    func = t_cache.make_cache(cfg_t, C, 0, "cpu")
+    t64 = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64))
+    dup_sets = 0
+    for g in range(NG):
+        kw = dict(is_write=wr[g], obj_size=size[g], values=vals[g])
+        *j, jres = step(*j, jnp.asarray(keys[g]),
+                        **{k: jnp.asarray(v) for k, v in kw.items()})
+        tkw = dict(is_write=torch.from_numpy(wr[g]), obj_size=t64(size[g]),
+                   values=t64(vals[g]))
+        old = func
+        before = _snapshot(*old)
+        *func, fres = t_cache.access_group(cfg_t, *old, t64(keys[g]), **tkw)
+        assert _same_snapshots(before, _snapshot(*old))
+        cols = [getattr(inplace[0], f) for f in t_cache.WRITTEN]
+        *inplace, ires = t_cache.access_group_(cfg_t, *inplace, t64(keys[g]),
+                                               **tkw)
+        assert all(getattr(inplace[0], f) is c
+                   for f, c in zip(t_cache.WRITTEN, cols))
+        assert _same_snapshots(_snapshot(*inplace), _snapshot(*func))
+        for f in fres._fields:
+            assert torch.equal(getattr(fres, f), getattr(ires, f)), f
+        assert np.array_equal(ires.hit.numpy(), np.asarray(jres.hit))
+        assert np.array_equal(ires.value.numpy(), np.asarray(jres.value))
+        for got, want in ((t_types.state_to_numpy(inplace[0]), j[0]),
+                          (t_types.clients_to_numpy(inplace[1]), j[1]),
+                          (t_types.stats_to_numpy(inplace[2]), j[2])):
+            for f in want._fields:
+                w = np.asarray(getattr(want, f))
+                if w.dtype.kind != "f":
+                    assert np.array_equal(got[f], w.astype(got[f].dtype)), f
+                else:
+                    np.testing.assert_array_max_ulp(
+                        got[f], w, maxulp=16 if f in _COMPOUNDED else 4)
+        set_keys = keys[g][ires.hit.numpy() & wr[g]]
+        dup_sets += int(set_keys.size - np.unique(set_keys).size)
+    st = inplace[2]
+    assert int(st.evictions) > 0 and int(st.bucket_evictions) > 0
+    assert dup_sets > 0
+
+
+def test_scan_and_execute_leave_the_callers_state_untouched():
+    """The trace drivers run the in-place step on their own copy of the
+    carry: the caller's state, clients and stats stay as they were."""
+    _, cfg = _cfgs("fused")
+    keys, wr = _trace("A", n=960, seed=12)
+    half = keys.shape[0] // 2
+    warm = t_execute(t_make(cfg, C, 0, device="cpu"), keys[:half], plan=None,
+                     is_write=wr[:half])
+    c = warm.cache
+    before = _snapshot(c.state, c.clients, c.stats)
+    gp = t_plan.pack_rows(keys[half:], cfg.n_buckets, 4, is_write=wr[half:])
+    r = t_execute(c, keys[half:], plan=gp, is_write=wr[half:])
+    r2 = t_execute(c, keys[half:], plan=None, is_write=wr[half:])
+    tr = t_cache._run_trace_grouped_impl(cfg, c.state, c.clients,
+                                         torch.from_numpy(gp.keys.astype(
+                                             np.int64)))
+    assert _same_snapshots(before, _snapshot(c.state, c.clients, c.stats))
+    assert int(r.stats.evictions) > 0 and int(r2.stats.evictions) > 0
+    assert not _same_snapshots(before, _snapshot(tr.state, tr.clients,
+                                                 c.stats))
 
 
 def test_unported_options_raise():

@@ -139,7 +139,7 @@ def _fc_clients(C, F, seed):
     jc = base._replace(fc_slot=jnp.asarray(fc_slot),
                        fc_delta=jnp.asarray(fc_delta),
                        fc_ins=jnp.asarray(fc_ins))
-    tc = t_types.clients_from_numpy(jc)
+    tc = t_types.clients_from_numpy(jc, "cpu")
     return cfg_j, jc, tc
 
 
@@ -234,7 +234,7 @@ def test_init_state_matches_and_round_trips():
             assert got[f].shape == w.shape, f
             assert np.array_equal(got[f], w), f
     # numpy -> tensors -> numpy is the identity, dtypes restored.
-    back = t_types.state_to_numpy(t_types.state_from_numpy(js))
+    back = t_types.state_to_numpy(t_types.state_from_numpy(js, "cpu"))
     for f in js._fields:
         assert back[f].dtype == np.asarray(getattr(js, f)).dtype, f
     stats = t_types.stats_add(tst, hits=torch.tensor(3), gets=4)

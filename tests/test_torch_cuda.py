@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from repro_torch.core import CacheConfig, execute, make
+from repro_torch.core import cache as t_cache
 from repro_torch.core import types as t_types
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core.hashing import hash_key
@@ -37,8 +38,10 @@ from repro_torch.serve import DecodeEngine
 from repro_torch.workloads import gen, plan
 
 EXPERTS = ("lru", "lfu", "fifo", "size", "hyperbolic")
-# The kernels of core.access, which a cache step launches once each.
-CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction")
+# The kernels of core.access and their launches a cache step: the apply's
+# three write groups (SET, insert, evict) are one drop_scatter each.
+CACHE_KERNELS = {"access_probe": 1, "hit_metadata_update": 1,
+                 "ranked_eviction": 1, "drop_scatter": 3}
 C = 8
 
 
@@ -143,7 +146,63 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
     assert ops.launches() == {"access_probe": 1, "hit_metadata_update": 1,
                               "ranked_eviction": 2, "flash_attention": 0,
                               "sampled_eviction": 4, "bucket_lookup": 1,
-                              "metadata_update": 2}
+                              "metadata_update": 2, "drop_scatter": 0}
+
+
+def _same_bits(a, b) -> bool:
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,C,Bh,Be,case", [
+    (0, 11, 7, 9, "mixed"), (1, 32, 33, 64, "mixed"), (2, 24, 1, 3, "mixed"),
+    (3, 17, 40, 5, "mixed"), (4, 16, 32, 8, "one_slot"),
+    (5, 16, 24, 24, "overlap"), (6, 4096, 2048, 10240, "mixed")])
+def test_in_place_kernels_match_plain_versions_on_the_card(cuda, seed, C, Bh,
+                                                           Be, case):
+    """The in-place hit-metadata kernel and drop_scatter, bit-equal to
+    their plain versions on copies of the same columns: the CPU tests'
+    seeds and shapes (every hit on one slot; flushes on exactly the hit
+    slots) and the main path's B = 2048."""
+    rng = np.random.default_rng(seed)
+    freq = rng.integers(0, 2**32 - 64, C, dtype=np.uint64).astype(np.int64)
+    freq[:3] = [0, 1, 2**32 - 100]
+    last = rng.integers(0, 5000, C)
+    ext = rng.uniform(0, 60, (C, 4)).astype(np.float32)
+    hit = np.where(rng.random(Bh) < 0.75, rng.integers(0, C, Bh), -1)
+    hit[: min(4, Bh)] = hit[0]
+    if case == "one_slot":
+        hit[:] = 2
+    emit = np.where(rng.random(Be) < 0.6, rng.integers(0, C, Be), -1)
+    emit[: min(2, Be)] = 3
+    if case == "overlap":
+        emit = hit.copy()
+    delta = np.where(emit >= 0, rng.integers(1, 11, Be), 0)
+    args = tuple(_t(a, cuda) for a in (hit, 5000 + rng.integers(0, 8, Bh),
+                                       emit, delta))
+    cols = (_t(freq, cuda), _t(last, cuda), torch.from_numpy(ext).to(cuda))
+    got, want = [tuple(c.clone() for c in cols) for _ in range(2)]
+    ops.reset_launches()
+    ops.hit_metadata_update_op_(*got, *args)
+    ref.hit_metadata_update_ref_(*want, *args)
+    assert all(map(_same_bits, got, want))
+
+    # Unique in-range entries, as the step gives them; the rest dropped.
+    n_in = min(Bh, C) // 2 + 1
+    idx = np.full(Bh, C)
+    idx[rng.choice(Bh, n_in, replace=False)] = rng.choice(C, n_in,
+                                                          replace=False)
+    srcs = (_t(rng.integers(0, 2**32, Bh), cuda), 1,
+            torch.from_numpy(rng.random((Bh, 4), np.float32)).to(cuda))
+    got, want = [tuple(c.clone() for c in cols) for _ in range(2)]
+    ops.drop_scatter_op_(_t(idx, cuda), got, srcs)
+    ref.drop_scatter_ref(_t(idx, cuda), want, srcs)
+    assert all(map(_same_bits, got, want))
+    assert not torch.equal(got[0], cols[0])
+    assert ops.launches()["hit_metadata_update"] == 1
+    assert ops.launches()["drop_scatter"] == 1
 
 
 def _ycsb(workload, n, n_keys, seed):
@@ -195,8 +254,7 @@ def test_trace_on_the_card_matches_the_cpu(cuda, backend):
     # (the config is this test's alone, so both segments capture).
     steps = 2 + gp.n_groups + (keys.shape[0] - half)
     want = steps if backend == "fused" else 0
-    assert launches == {k: want if k in CACHE_KERNELS else 0
-                        for k in launches}
+    assert launches == {k: want * CACHE_KERNELS.get(k, 0) for k in launches}
 
 
 @pytest.mark.cuda
@@ -229,13 +287,99 @@ def test_a_later_run_replays_the_captured_step(cuda):
     first = ops.launches()
     ops.reset_launches()
     r2 = execute(c, keys[:short], plan=None, is_write=wr[:short])
-    cache_kernels = dict.fromkeys(CACHE_KERNELS, 1)
-    assert first == {k: (keys.shape[0] + 1) * cache_kernels.get(k, 0)
+    assert first == {k: (keys.shape[0] + 1) * CACHE_KERNELS.get(k, 0)
                      for k in first}
-    assert ops.launches() == {k: short * cache_kernels.get(k, 0)
+    assert ops.launches() == {k: short * CACHE_KERNELS.get(k, 0)
                               for k in first}
     assert [w["compiled"] for w in r1.windows + r2.windows] == [True, False]
     assert np.array_equal(r2.hits, r1.hits[:short])
+
+
+@pytest.mark.cuda
+def test_the_captured_step_writes_the_table_in_place(cuda):
+    """The captured grouped step runs the in-place step on the graph's
+    own carry: each table column it returns is the column it was given,
+    so nothing is copied back, and every column keeps its data_ptr from
+    replay to replay."""
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, fc_threshold=7)
+    keys, wr = gen.interleave(*_ycsb("A", 1280, 300, 6))
+    gp = plan.pack_rows(keys, cfg.n_buckets, 8, is_write=wr)
+    seen, real = [], t_cache.access_group_
+
+    def spy(cfg_, st, *a, **kw):
+        out = real(cfg_, st, *a, **kw)
+        seen.append([(getattr(st, f).data_ptr(), getattr(out[0], f)
+                      .data_ptr()) for f in t_cache.WRITTEN])
+        return out
+
+    had = set(t_cache._GRAPHS)
+    ptrs = []
+    with mock.patch.object(t_cache, "access_group_", spy):
+        for _ in range(2):
+            r = execute(make(cfg, C, 0, device=cuda), keys, plan=gp,
+                        is_write=wr)
+            (cap,) = [t_cache._GRAPHS[k] for k in set(t_cache._GRAPHS) - had]
+            ptrs.append([t.data_ptr() for t in cap.leaves])
+            assert int(r.stats.evictions) > 0
+    assert len(seen) == 2               # the warm-up and the capture
+    assert all(a == b for call in seen for a, b in call)
+    assert ptrs[0] == ptrs[1]
+    fields = t_types.CacheState._fields
+    assert [p for p, _ in seen[1]] == [ptrs[0][fields.index(f)]
+                                      for f in t_cache.WRITTEN]
+
+
+@pytest.mark.cuda
+def test_the_fused_step_returns_no_whole_column(cuda):
+    """One eager fused step on the card: no operator returns a whole
+    column but the two of the bytes_cached reduction (the kernels write
+    the table in place through ctypes, not as operators)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    cfg = CacheConfig(n_buckets=1024, assoc=4, capacity=2048)
+    n, seen = cfg.n_slots, []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if "empty" not in str(func):
+                seen.extend(str(func) for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor) and t.dim()
+                            and t.shape[0] >= n)
+            return out
+
+    st, cl, sa = t_cache.make_cache(cfg, C, 0, cuda)
+    keys = _t(np.arange(1, 8 * C + 1).reshape(8, C), cuda)
+    t_cache.access_group_(cfg, st, cl, sa, keys)
+    with Watch():
+        t_cache.access_group_(cfg, st, cl, sa, keys + 1, is_write=keys > 30)
+    assert [f.split(".")[1] for f in seen] == ["eq", "where"], seen
+
+
+@pytest.mark.cuda
+def test_fused_and_reference_agree_over_hundreds_of_steps(cuda):
+    """A few hundred captured grouped steps on the card under each
+    backend: every column bit-equal, f32 ones too (the kernel's ext
+    update rounds as the reference backend's PyTorch operators do)."""
+    runs = {}
+    keys, wr = gen.interleave(*_ycsb("A", 9600, 600, 7))
+    for backend in ("fused", "reference"):
+        cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, sync_period=4,
+                          experts=("lru", "lfu", "hyperbolic"),
+                          backend=backend)
+        gp = plan.pack_rows(keys, cfg.n_buckets, 8, is_write=wr)
+        runs[backend] = execute(make(cfg, C, 0, device=cuda), keys, plan=gp,
+                                is_write=wr)
+    a, b = runs["fused"], runs["reference"]
+    assert gp.n_groups >= 200 and int(a.stats.evictions) > 0
+    assert np.array_equal(a.hits, b.hits) and np.array_equal(a.ops, b.ops)
+    for part, to_np in (("state", t_types.state_to_numpy),
+                        ("clients", t_types.clients_to_numpy),
+                        ("stats", t_types.stats_to_numpy)):
+        x, y = to_np(getattr(a, part)), to_np(getattr(b, part))
+        for f in x:
+            assert x[f].tobytes() == y[f].tobytes(), (part, f)
+    assert a.weights.tobytes() == b.weights.tobytes()
 
 
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}

@@ -128,6 +128,48 @@ def test_hit_metadata_update_matches_pallas(seed, C, Bh, Be):
     np.testing.assert_array_max_ulp(ge.numpy(), np.asarray(we), maxulp=4)
 
 
+@pytest.mark.parametrize("seed,C,Bh,Be,case", [
+    (0, 11, 7, 9, "mixed"), (1, 32, 33, 64, "mixed"), (2, 24, 1, 3, "mixed"),
+    (3, 17, 40, 5, "mixed"), (4, 16, 32, 8, "one_slot"),
+    (5, 16, 24, 24, "overlap")])
+def test_hit_metadata_update_in_place_matches_pallas(seed, C, Bh, Be, case):
+    """The in-place op on copies of the columns equals the JAX op: the
+    seeds and shapes above, every hit on one slot, and flushes on exactly
+    the hit slots (the FAA must not reach a slot before its ext update
+    has read the step-entry freq)."""
+    rng = np.random.default_rng(seed)
+    freq = rng.integers(0, 2**32 - 64, C, dtype=np.uint64).astype(np.uint32)
+    freq[:3] = [0, 1, 2**32 - 100]
+    last = rng.integers(0, 5000, C).astype(np.uint32)
+    ext = rng.uniform(0, 60, (C, 4)).astype(np.float32)
+    hit = np.where(rng.random(Bh) < 0.75, rng.integers(0, C, Bh), -1)
+    hit[: min(4, Bh)] = hit[0]
+    if case == "one_slot":
+        hit[:] = 2
+    hts = (5000 + rng.integers(0, 8, Bh)).astype(np.uint32)
+    emit = np.where(rng.random(Be) < 0.6, rng.integers(0, C, Be), -1)
+    emit[: min(2, Be)] = 3
+    if case == "overlap":
+        emit = hit.copy()
+    delta = np.where(emit >= 0, rng.integers(1, 11, Be), 0)
+    wf, wl, we = jops.hit_metadata_update_op(
+        jnp.asarray(freq), jnp.asarray(last), jnp.asarray(ext),
+        jnp.asarray(hit.astype(np.int32)), jnp.asarray(hts),
+        jnp.asarray(emit.astype(np.int32)),
+        jnp.asarray(delta.astype(np.float32)))
+    gf, gl, ge = _t(freq), _t(last), torch.tensor(ext)
+    ops.hit_metadata_update_op_(gf, gl, ge, _t(hit), _t(hts), _t(emit),
+                                _t(delta))
+    assert np.array_equal(gf.numpy(), np.asarray(wf).astype(np.int64))
+    assert np.array_equal(gl.numpy(), np.asarray(wl).astype(np.int64))
+    np.testing.assert_array_max_ulp(ge.numpy(), np.asarray(we), maxulp=4)
+    touched = np.unique(hit[hit >= 0])
+    assert not np.array_equal(ge.numpy()[touched], ext[touched])
+    if case == "overlap":
+        assert np.array_equal(gf.numpy()[touched] > freq[touched].astype(
+            np.int64), np.ones(touched.size, bool))
+
+
 def test_hit_metadata_update_writes_fresh_tensors():
     """The eviction later in the step reads the step-entry columns."""
     freq, last = _t([1, 2, 3]), _t([10, 20, 30])
@@ -401,6 +443,61 @@ def test_metadata_update_any_table_matches_the_jnp_oracle(seed, C, B):
 
 
 # ---------------------------------------------------------------------------
+# drop_scatter (the apply's writes; XLA's in-place scatter in the JAX package)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,n,B,W,case", [
+    (0, 9, 6, 2, "mixed"), (1, 32, 40, 4, "mixed"), (2, 5, 4, 1, "none"),
+    (3, 16, 16, 3, "all"), (4, 7, 1, 2, "mixed")])
+def test_drop_scatter_matches_xla_drop_mode(seed, n, B, W, case):
+    """Several columns to one index array against ``.at[idx].set(src,
+    mode="drop")``: index n (the step's dropped index) and -1 write
+    nothing, duplicates write equal rows, a number fills an int64
+    column."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, B)
+    idx[rng.random(B) < 0.3] = n
+    if case == "none":
+        idx[:] = n
+        idx[0] = -1
+    elif case == "all":
+        idx = rng.permutation(n)[:B]
+    if B > 3 and case == "mixed":
+        idx[2] = idx[0]                       # a duplicate, equal rows
+    a = rng.integers(0, 2**32, n).astype(np.uint32)
+    b = rng.random((n, W)).astype(np.float32)
+    c = rng.integers(0, 2**32, (n, W)).astype(np.uint32)
+    src_a = rng.integers(0, 2**32, B).astype(np.uint32)
+    src_b = rng.random((B, W)).astype(np.float32)
+    first = np.unique(idx, return_index=True, return_inverse=True)
+    src_a, src_b = src_a[first[1]][first[2]], src_b[first[1]][first[2]]
+    ji = jnp.asarray(np.where(idx < 0, n, idx).astype(np.int32))
+    want = (jnp.asarray(a).at[ji].set(jnp.asarray(src_a), mode="drop"),
+            jnp.asarray(b).at[ji].set(jnp.asarray(src_b), mode="drop"),
+            jnp.asarray(c).at[ji].set(jnp.uint32(7), mode="drop"))
+    got = (_t(a), torch.tensor(b), _t(c))
+    ops.drop_scatter_op_(_t(idx), got, (_t(src_a), torch.tensor(src_b), 7))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(g.numpy().dtype))
+    if case == "none":
+        assert np.array_equal(got[0].numpy(), a)
+
+
+def test_drop_scatter_writes_nothing_at_the_dropped_index():
+    col = _t([10, 11, 12])
+    ops.drop_scatter_op_(_t([3, 3, -1]), (col,), (_t([1, 2, 3]),))
+    assert col.tolist() == [10, 11, 12]
+    ops.drop_scatter_op_(_t([3, 0, 3]), (col,), (_t([1, 2, 3]),))
+    assert col.tolist() == [2, 11, 12]
+    with pytest.raises(TypeError, match="integer"):
+        ops.drop_scatter_op_(_t([0]), (torch.zeros(3),), (1,))
+    with pytest.raises(ValueError, match="columns"):
+        ops.drop_scatter_op_(_t([0]), (col,), ())
+    with pytest.raises(ValueError, match="shape"):
+        ops.drop_scatter_op_(_t([0]), (col, _t([1, 2])), (1, 2))
+
+
+# ---------------------------------------------------------------------------
 # the op wrappers
 # ---------------------------------------------------------------------------
 
@@ -415,10 +512,13 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                             window=4, k=2)
     ops.bucket_lookup_op(_t([0] * 8), _t([0] * 8), _t([1]), assoc=4)
     ops.metadata_update_op(col, col, _t([3]), torch.ones(1), 2.0)
+    ops.hit_metadata_update_op_(_t([0, 0]), _t([0, 0]), torch.zeros(2, 4),
+                                _t([1]), _t([3]), _t([-1]), _t([0]))
+    ops.drop_scatter_op_(_t([1, 2]), (_t([0, 0]),), (_t([5, 6]),))
     assert ops.launches() == {"access_probe": 0, "hit_metadata_update": 0,
                               "ranked_eviction": 0, "flash_attention": 0,
                               "sampled_eviction": 0, "bucket_lookup": 0,
-                              "metadata_update": 0}
+                              "metadata_update": 0, "drop_scatter": 0}
 
 
 def test_wrappers_check_their_arguments():
@@ -483,11 +583,13 @@ def test_each_cuda_source_carries_its_note_and_entry_point():
     assert set(srcs) == {"access_probe", "hit_metadata_update",
                          "ranked_eviction", "flash_attention",
                          "sampled_eviction", "bucket_lookup",
-                         "metadata_update"}
+                         "metadata_update", "drop_scatter"}
     assert set(srcs) == set(runtime.KERNELS)
     for name, text in srcs.items():
         assert f"extern \"C\" int {name}_launch(" in text
-        assert "Replaces the Pallas kernel" in text
+        # drop_scatter stands for XLA's in-place scatters, not a Pallas kernel.
+        assert ("replaces no Pallas kernel" if name == "drop_scatter"
+                else "Replaces the Pallas kernel") in text
         assert "Bound on the H100" in text
         assert "cudaGetLastError()" in text
     assert set(runtime.SIGNATURES) == {f"{n}_launch" for n in srcs}
