@@ -4,31 +4,44 @@
     python3 chip_smoke.py                     # the full run (one card)
     python3 chip_smoke.py --profile 200 --out runs/smoke.json
                                               # + traced windows, saved
+    python3 chip_smoke.py --step-only --profile 20
+                                              # the step's operators and
+                                              # trace alone (no result)
 
 ``--requests N`` shortens the end-to-end phase; below ~4.5M requests
 the table does not fill, and the run fails its eviction check.
+``--step-only`` plans phase 3's trace, counts one eager step's operators
+per backend and, with ``--profile``, traces the steps, and stops: it
+needs only ``execute``, ``make`` and ``access_group_``, so it also runs
+from an older checkout's ``src/`` (the before of a change to the step).
 
 Phases, each of which raises (exit code != 0) on any failure:
 
 1. Build: the hand-written CUDA kernels of ``src/repro_torch/kernels/csrc``
    compile with nvcc (one process per source, all at once).
-2. Per-kernel check: the cache step's four kernels, ``access_probe``,
-   ``hit_metadata_update`` (in place, and its functional form),
-   ``ranked_eviction`` and ``drop_scatter`` (the apply's in-place writes:
-   nine columns, half the entries dropped), against their plain PyTorch
-   versions on the card, over a random 2,097,152-slot table made with
-   numpy from a seed, at B = 64 and B = 2048 with duplicates, -1 no-ops,
-   every hit on one slot, flushes on exactly the hit slots, history ages
-   that wrap, quota > 1 and tenant filters.  Every output must be
-   bit-equal.  Each kernel and its plain version are timed with CUDA
-   events at the main path's shapes (the in-place ones on copies of the
-   columns, with no copy in the time), and ``hit_metadata_update``'s
-   functional form, which copies the three columns first, on its own.
+2. Per-kernel check: the cache step's four kernels, ``access_probe``
+   (alone, and with the insert path's bucket facts: every expert
+   choice's bucket argmin, E included), ``hit_metadata_update`` (in
+   place, and its functional form), ``ranked_eviction`` (samples of
+   K = 5, and K = 33 and 64, wider than a warp) and ``drop_scatter`` (the
+   apply's three write groups in one launch: SET, masked inserts of nine
+   columns, masked evictions of B * K entries with select sources,
+   collisions across the groups), against their plain PyTorch versions
+   on the card, over a random 2,097,152-slot table made with numpy from
+   a seed, at B = 64 and B = 2048 with duplicates, -1 no-ops, every hit
+   on one slot, flushes on exactly the hit slots, history ages that
+   wrap, quota > 1 and tenant filters.  Every output must be bit-equal.
+   An empty kernel is timed first, the launch floor.  Each kernel and
+   its plain version are timed with CUDA events at the main path's
+   shapes (the in-place ones on copies of the columns, with no copy in
+   the time); the probe alone, the insert group alone, and
+   ``hit_metadata_update``'s functional form, which copies the three
+   columns first, on their own.
    Then the three kernels that only the ``kernels.ops`` entry point
    reaches: ``bucket_lookup``, ``sampled_eviction`` (f32 columns padded
-   at the tail by W = 20 and 128 with empty slots, all five experts, the
-   clock as a number and on the card, a window wholly in the empty
-   tail) and ``metadata_update`` (f32 freq and last_ts; duplicate, -1
+   at the tail by W = 20, 128 and 132 with empty slots, K = 5, 33 and
+   64, all five experts, the clock as a number and on the card, a window
+   wholly in the empty tail) and ``metadata_update`` (f32 freq and last_ts; duplicate, -1
    and past-the-table slots; non-integer deltas) against their plain
    versions at B = 13, 64 and 2048: integers and both f32 columns
    bit-equal, and two ``metadata_update`` launches the same bits.  The
@@ -44,12 +57,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    planned once at batch 32, through ``execute()`` with the fused and
    the reference backend.  Integer state, OpStats and per-round hits
    must be bit-equal, f32 columns within 4 ulp; every kernel must have
-   launched and the cache must have evicted.  One eager grouped step of
-   each backend runs under a dispatch mode that lists every operator
-   returning a whole column (2,097,152 rows or more): the fused step's
-   must be the ``bytes_cached`` reduction's two and nothing else (no
-   clone, copy, concatenation or fill of a column; its kernels write
-   the table in place).
+   launched, each as often as the others (once a step: the probe with
+   its facts, and one ``drop_scatter`` for the apply's three write
+   groups), and the cache must have evicted.  One eager grouped step of
+   each backend runs under a dispatch mode that counts its operators and
+   lists every one returning a whole column (2,097,152 rows or more):
+   the fused step's must be the ``bytes_cached`` reduction's two and
+   nothing else (no clone, copy, concatenation or fill of a column; its
+   kernels write the table in place).
 4. End to end, sequential: 1,000 more rounds at ``plan=None`` from the
    warmed caches, checked the same way.
 5. End to end, adaptive: 2,000 more rounds through ``execute()`` with
@@ -96,10 +111,10 @@ Phases, each of which raises (exit code != 0) on any failure:
    (prompt 96 tokens with a shared 48-token prefix, 16 new tokens,
    4 lanes, pages of 16 tokens, a 32-page pool, so the Ditto page cache
    evicts).  Every request must finish, the prefix hit rate and the
-   evictions be > 0, and the page cache's four kernels have launched.
-   The page cache's lookup stream is replayed through a fresh page cache
-   on the card, with every launch of its four kernels held against the
-   plain version on the same inputs (at the engine's shapes: one key a
+   evictions be > 0, and the page cache's four kernels have launched
+   (once a lookup each).  The page cache's lookup stream is replayed
+   through a fresh page cache on the card, with every launch of its four
+   kernels held against the plain version on the same inputs (at the engine's shapes: one key a
    lookup on a 512-slot table), and through one on the CPU; each
    lookup's answer and the final state must equal the engine's.
    Every request's greedy tokens must equal the argmax of the prefill
@@ -115,7 +130,8 @@ counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
 engine's) and read just after it.
 
-The second-to-last line is the kernels' JSON record, the last line
+The second-to-last line is the kernels' JSON record (each with the
+launch floor, ``floor_ms``), the last line
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -287,7 +303,49 @@ def random_table(rng, n_buckets: int, assoc: int, hist_ctr: int,
     return dict(key=key, key_hash=khash, size=size, ptr=ptr)
 
 
-def check_kernels(dev, results: dict) -> None:
+def apply_groups(rng, dev, n: int, B: int, keys, ts, u32, K: int = 5):
+    """The cache step's three write groups at its shapes (B ops, K victims
+    an op, an n-row table), as a function of the nine columns they write
+    (key, key_hash, size, ptr, insert_ts, last_ts, freq, ext, values):
+    SET (B entries, half at distinct slots, the rest at the dropped index
+    n), inserts (B entries, a third kept by their mask, at distinct slots,
+    8 of them SET slots) and evictions (B * K entries, 1% kept by their
+    mask, at distinct slots, 8 of them insert targets; size and ptr from
+    selects of a history flag, as the step gives them)."""
+    import numpy as np
+    import torch
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    n_set = B // 2
+    ins_ok = rng.random(B) < 1 / 3
+    ev_ok = rng.random(B * K) < 0.01
+    n_ins, n_ev = int(ins_ok.sum()), int(ev_ok.sum())
+    pool = rng.choice(n, n_set + n_ins + n_ev, replace=False)
+    set_idx = np.full(B, n)
+    set_idx[rng.choice(B, n_set, replace=False)] = pool[:n_set]
+    ins_slot = rng.integers(0, n, B)
+    ins_slot[ins_ok] = pool[n_set - 8:n_set - 8 + n_ins]
+    victims = np.full(B * K, -1)
+    victims[ev_ok] = pool[n_set + n_ins - 16:n_set + n_ins - 16 + n_ev]
+    victims[~ev_ok & (rng.random(B * K) < 0.3)] = rng.integers(0, n)
+    vals, sz = t(u32(2 * B).reshape(B, 2)), t(rng.integers(1, 9, B))
+    hist = t(rng.random(B * K) < 0.6)
+    ins_src = (keys, t(u32(B)), sz, 0, ts, ts, 1,
+               t(rng.random((B, 4), np.float32)), vals)
+    ev_src = ((hist, 255, 0), (hist, t(u32(B * K)), 0),
+              t(rng.integers(0, 8, B * K)))
+    idx = [t(a) for a in (set_idx, ins_slot, victims)]
+    masks = [t(a) for a in (ins_ok, ev_ok)]
+
+    def groups(cols):
+        key, kh, size, ptr, ins, last, freq, ext, values = cols
+        return ((idx[0], (values, size), (vals, sz)),
+                (idx[1], cols, ins_src, masks[0]),
+                (idx[2], (size, ptr, ins), ev_src, masks[1]))
+    return groups
+
+
+def check_kernels(dev, results: dict) -> float:
+    """Phase 2; returns the launch floor, ms."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
@@ -326,15 +384,27 @@ def check_kernels(dev, results: dict) -> None:
     for B in (64, 2048):
         keys = probe_keys(B)
         args = (t["key"], t["size"], t["key_hash"], t["ptr"], keys, hctr)
-        kw = dict(assoc=ASSOC, history_len=history_len)
-        got = ops.access_probe_op(*args, **kw)
-        want = ref.access_probe_ref(*args, **kw)
-        for name, g, w in zip(("found", "slot", "hist_found", "hist_slot"),
-                              got, want):
-            same_int(f"access_probe[B={B}].{name}", g, w)
-        if not (bool(got[0].any()) and bool(got[2].any())):
-            raise AssertionError("access_probe: no key or history match")
-        shapes[("access_probe", B)] = (args, kw)
+        # The probe alone, and with the insert path's facts (the cache
+        # step's form: every expert choice's bucket argmin, E included).
+        ts = torch.from_numpy(1_000_000 + rng.integers(0, 32, B)).to(dev)
+        for form, kw in (("alone", dict(assoc=ASSOC,
+                                          history_len=history_len)),
+                         ("facts", dict(assoc=ASSOC, history_len=history_len,
+                                        meta=(ins, last, freq), ts=ts,
+                                        experts=EXPERTS_ALL))):
+            got = ops.access_probe_op(*args, **kw)
+            want = ref.access_probe_ref(*args, **kw)
+            names = ("found", "slot", "hist_found", "hist_slot")
+            if form == "facts":
+                names += tuple(got[4]._fields)
+                got, want = (got[:4] + tuple(got[4]),
+                             want[:4] + tuple(want[4]))
+            for name, g, w in zip(names, got, want):
+                same_int(f"access_probe[B={B},{form}].{name}", g, w)
+            if not (bool(got[0].any()) and bool(got[2].any())):
+                raise AssertionError("access_probe: no key or history match")
+            shapes[("access_probe" if form == "facts" else
+                    "access_probe_alone", B)] = (args, kw)
 
         # hit_metadata_update: duplicate hits, -1 no-ops, emits with
         # duplicates (the main path's emit width is C * (2F + G)).
@@ -375,56 +445,53 @@ def check_kernels(dev, results: dict) -> None:
         results.setdefault("hit_metadata_update", {})["max_abs_err"] = 0.0
         shapes[("hit_metadata_update", B)] = (margs, {})
 
-        # drop_scatter: the apply's insert write (all nine columns, numbers
-        # and rows) with about half the entries at the dropped index.
-        n_ins = B // 2
-        tgt = np.full(B, n_slots, np.int64)
-        tgt[rng.choice(B, n_ins, replace=False)] = rng.choice(
-            n_slots, n_ins, replace=False)
+        # drop_scatter: the apply's three write groups in one launch at
+        # the main path's shapes: SET (B entries, last-writer-wins
+        # indices, two columns), inserts (B entries masked, all nine
+        # columns, numbers and rows) and evictions (B * K entries masked,
+        # select sources), with collisions across the groups.
         cols = (t["key"], t["key_hash"], t["size"], t["ptr"], ins, last, freq,
                 ext, torch.from_numpy(u32(2 * n_slots).reshape(n_slots, 2))
                 .to(dev))
-        srcs = (keys, torch.from_numpy(u32(B)).to(dev),
-                torch.from_numpy(rng.integers(1, 9, B)).to(dev), 0,
-                args[1], args[1], 1, torch.from_numpy(
-                    rng.random((B, 4), np.float32)).to(dev),
-                torch.from_numpy(u32(2 * B).reshape(B, 2)).to(dev))
-        sargs = (torch.from_numpy(tgt).to(dev), cols, srcs)
-        got = tuple(c.clone() for c in cols)
-        ops.drop_scatter_op_(sargs[0], got, srcs)
-        want = tuple(c.clone() for c in cols)
-        ref.drop_scatter_ref(sargs[0], want, srcs)
+        groups = apply_groups(rng, dev, n_slots, B, keys, args[1], u32)
+        copies = [tuple(c.clone() for c in cols) for _ in range(2)]
+        got, want = copies
+        ops.drop_scatter_groups_op_(groups(got))
+        ref.drop_scatter_groups_ref(groups(want))
         for k, (g, w) in enumerate(zip(got, want)):
             (same_bits if g.is_floating_point() else same_int)(
                 f"drop_scatter[B={B}].col{k}", g, w)
-        if torch.equal(got[0], cols[0]):
+        if torch.equal(got[0], cols[0]) or torch.equal(got[3], cols[3]):
             raise AssertionError("drop_scatter wrote nothing")
         results.setdefault("drop_scatter", {})["max_abs_err"] = 0.0
-        shapes[("drop_scatter", B)] = (sargs, {})
+        shapes[("drop_scatter", B)] = ((groups(copies[0]),), {})
+        shapes[("drop_scatter_insert", B)] = (groups(copies[1])[1], {})
 
         # ranked_eviction: all five kernel experts, W = 20 and W = 128,
         # per-op quota up to 3, tenant filters; then the main path's form.
-        for W, experts, filt in ((20, EXPERTS_ALL, False),
-                                 (128, EXPERTS_ALL, True),
-                                 (20, ("lru", "lfu"), False)):
+        for W, K, experts, filt in ((20, 5, EXPERTS_ALL, False),
+                                    (128, 5, EXPERTS_ALL, True),
+                                    (132, 33, EXPERTS_ALL, True),
+                                    (128, 64, ("lru", "hyperbolic"), False),
+                                    (20, 5, ("lru", "lfu"), False)):
             E = len(experts)
             offs = torch.from_numpy(rng.integers(0, n_slots, B)).to(dev)
             ech = torch.from_numpy(rng.integers(0, E, B)).to(dev)
             must = torch.from_numpy(rng.random(B) < 0.8).to(dev)
-            quota = torch.from_numpy(rng.integers(0, 4, B)).to(dev)
+            quota = torch.from_numpy(rng.integers(0, 4 if K <= 5 else 4 * K,
+                                                  B)).to(dev)
             ts = torch.from_numpy(1_000_000 + rng.integers(0, 32, B)).to(dev)
             tf = torch.from_numpy(np.where(rng.random(B) < 0.5, -1,
                                            rng.integers(0, 4, B))).to(dev)
             rargs = (t["size"], ins, last, freq, offs, ech, must, quota, ts)
-            rkw = dict(window=W, k=5, experts=experts,
+            rkw = dict(window=W, k=K, experts=experts,
                        tenant=tenant if filt else None,
                        tfilt=tf if filt else None)
             got = ops.ranked_eviction_op(*rargs, **rkw)
             want = ref.ranked_eviction_ref(*rargs, **rkw)
-            same_int(f"ranked_eviction[B={B},W={W},E={E}].victims",
-                     got[0], want[0])
-            same_int(f"ranked_eviction[B={B},W={W},E={E}].cand",
-                     got[1], want[1])
+            tag = f"ranked_eviction[B={B},W={W},K={K},E={E}]"
+            same_int(f"{tag}.victims", got[0], want[0])
+            same_int(f"{tag}.cand", got[1], want[1])
             if int((got[0] >= 0).sum()) == 0:
                 raise AssertionError("ranked_eviction took no victim")
         shapes[("ranked_eviction", B)] = (rargs, rkw)
@@ -434,21 +501,25 @@ def check_kernels(dev, results: dict) -> None:
     # The in-place kernels write copies of the columns, so the later
     # phases read the table as it was.
     torch.cuda.synchronize()
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.bucket_lookup import access_probe
     from repro_torch.kernels.metadata_update import hit_metadata_update_
     from repro_torch.kernels.sampled_eviction import ranked_eviction
     from repro_torch.kernels.scatter import drop_scatter
+    floor_ms = time_ms(lambda: runtime.launch_floor(dev))
+    log(f"launch floor: an empty kernel takes {floor_ms * 1e3:.2f} us a "
+        f"launch in the same harness")
     margs, _ = shapes[("hit_metadata_update", 2048)]
-    sargs, _ = shapes[("drop_scatter", 2048)]
+    (groups,), _ = shapes[("drop_scatter", 2048)]
+    four = lambda gs: tuple((*g, None)[:4] for g in gs)   # the launcher's form
     timed = {"hit_metadata_update": (tuple(a.clone() for a in margs[:3])
                                      + margs[3:], {}),
-             "drop_scatter": ((sargs[0], tuple(c.clone() for c in sargs[1]),
-                               sargs[2]), {})}
+             "drop_scatter": ((four(groups),), {})}
     kern = {"access_probe": (access_probe, ref.access_probe_ref),
             "hit_metadata_update": (hit_metadata_update_,
                                     ref.hit_metadata_update_ref_),
             "ranked_eviction": (ranked_eviction, ref.ranked_eviction_ref),
-            "drop_scatter": (drop_scatter, ref.drop_scatter_ref)}
+            "drop_scatter": (drop_scatter, ref.drop_scatter_groups_ref)}
     for name, (k_fn, p_fn) in kern.items():
         args, kw = timed.get(name, shapes[(name, 2048)])
         r = results.setdefault(name, {})
@@ -462,6 +533,22 @@ def check_kernels(dev, results: dict) -> None:
             f"device ({r['eager_ms'] * 1e3:.2f} us launched from Python), "
             f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes']} bytes)")
+    # The other forms: the probe alone (the entry point's and the tests'),
+    # and the insert write as one group (the apply's launch before it
+    # took all three groups at once).
+    args, kw = shapes[("access_probe_alone", 2048)]
+    r = results["access_probe"]
+    r["ms_alone"] = time_ms(lambda: access_probe(*args, **kw))
+    r["bound_ms_alone"] = (bound_bytes("access_probe", args, kw)
+                           / HBM_BYTES_PER_S * 1e3)
+    group, _ = shapes[("drop_scatter_insert", 2048)]
+    r = results["drop_scatter"]
+    r["ms_insert_group"] = time_ms(lambda: drop_scatter(four((group,))))
+    r["bound_ms_insert_group"] = (bound_bytes("drop_scatter", ((group,),), {})
+                                  / HBM_BYTES_PER_S * 1e3)
+    log(f"access_probe alone (no facts): "
+        f"{results['access_probe']['ms_alone'] * 1e3:.2f} us; drop_scatter "
+        f"of the insert group alone: {r['ms_insert_group'] * 1e3:.2f} us")
     # The functional form (the entry point's and the tests'; the cache
     # step calls the in-place kernel): copies of the three columns, each
     # read once and written once, then the kernel.
@@ -476,6 +563,7 @@ def check_kernels(dev, results: dict) -> None:
         f"{r['wrapper_ms'] * 1e3:.2f} us")
     check_entry_point(dev, rng, t, dict(ins=ins, last=last, freq=freq), live,
                       probe_keys, results)
+    return floor_ms
 
 
 def same_bits(name, got, want) -> None:
@@ -518,19 +606,20 @@ def check_entry_point(dev, rng, t, meta, live, probe_keys,
             raise AssertionError(f"bucket_lookup[B={B}]: no key found")
         shapes[("bucket_lookup", B)] = (args, kw)
 
-        # sampled_eviction: all five experts, W = 20 and 128, the clock as
-        # a number and on the card, the last op's window in the empty tail.
-        for W in (128, 20):
+        # sampled_eviction: all five experts, W = 20 and 128, K = 5 and
+        # samples wider than a warp (K = 33, 64), the clock as a number
+        # and on the card, the last op's window in the empty tail.
+        for W, K in ((128, 5), (132, 33), (128, 64), (20, 5)):
             offs = rng.integers(0, n, B)
             offs[-1] = n
             sargs = padded(cols, W) + (torch.from_numpy(offs).to(dev),
                                        torch.from_numpy(rng.integers(
                                            0, len(EXPERTS_ALL), B)).to(dev))
-            kw = dict(window=W, k=5, experts=EXPERTS_ALL)
+            kw = dict(window=W, k=K, experts=EXPERTS_ALL)
             for clock in (1_000_016.0, on_card(1_000_031.0)):
                 got = ops.sampled_eviction_op(*sargs, clock, **kw)
                 want = ref.sampled_eviction_ref(*sargs, clock, **kw)
-                tag = f"sampled_eviction[B={B},W={W}]"
+                tag = f"sampled_eviction[B={B},W={W},K={K}]"
                 same_int(f"{tag}.victim", got[0], want[0])
                 same_int(f"{tag}.cand", got[1], want[1])
                 if int(got[0][-1]) != -1 or bool((got[1][-1] != -1).any()):
@@ -698,22 +787,42 @@ def bound_bytes(name: str, args, kw) -> int:
         return int(slots.numel() * 8 + deltas.numel() * 4 + 4
                    + touched * (4 + 4) * 2)
     if name == "access_probe":
+        # The probed buckets' key, size, hash and ptr words (and with the
+        # facts insert_ts, last_ts and freq), the keys (and timestamps) in;
+        # (found, slot, hist_found, hist_slot) (and the facts) out.
         tkey, tsize, thash, tptr, keys, _ = args
         assoc = kw["assoc"]
         from repro_torch.core.hashing import bucket_of, hash_key
         buckets = torch.unique(bucket_of(hash_key(keys), tkey.shape[0] // assoc))
         B = keys.shape[0]
-        return int(buckets.numel() * assoc * 4 * 8 + B * 8 + 8
-                   + B * (1 + 8 + 1 + 8))
+        facts = "meta" in kw
+        E = len(kw["experts"]) if facts else 0
+        return int(buckets.numel() * assoc * (7 if facts else 4) * 8
+                   + B * (16 if facts else 8) + 8 + B * (1 + 8 + 1 + 8)
+                   + (B * (8 * 4 + 3 + (E + 1) * 8) if facts else 0))
     if name == "drop_scatter":
-        # The indices in; at each in-range entry its source rows in (a
-        # number reads nothing) and its destination rows out.
-        idx, cols, srcs = args
-        n_in = int(((idx >= 0) & (idx < cols[0].shape[0])).sum())
-        row = sum(c[0].numel() * c.element_size() for c in cols)
-        src_row = sum(c[0].numel() * c.element_size()
-                      for c, x in zip(cols, srcs) if torch.is_tensor(x))
-        return int(idx.numel() * 8 + n_in * (row + src_row))
+        # Each group's indices (and mask) in; at each kept entry the
+        # source words it takes in (a select's flag, and the part it
+        # picks when that is a tensor; a number reads nothing) and its
+        # destination rows out.
+        total = 0
+        for group in args[0]:
+            idx, cols, srcs, mask = (*group, None)[:4]
+            keep = (idx >= 0) & (idx < cols[0].shape[0])
+            if mask is not None:
+                keep = keep & mask
+                total += mask.numel()
+            total += idx.numel() * 8
+            for c, x in zip(cols, srcs):
+                row = c[0].numel() * c.element_size()
+                total += int(keep.sum()) * row
+                cond, a, b = x if isinstance(x, tuple) else (None, x, 0)
+                pick = keep if cond is None else keep & cond
+                total += int(pick.sum()) * row * torch.is_tensor(a)
+                if cond is not None:
+                    total += int(keep.sum())
+                    total += int((keep & ~cond).sum()) * row * torch.is_tensor(b)
+        return total
     if name == "hit_metadata_update":
         # In place: the hit and emit arrays in; at each distinct hit slot
         # its step-entry freq, last_ts and ext in and last_ts, ext out; at
@@ -784,19 +893,12 @@ def cache_launches() -> dict:
     return {k: n[k] for k in CACHE_KERNELS}
 
 
-def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
-                  results: dict) -> tuple:
-    """Phases 3 and 4; returns the run's numbers, the plan and the
-    trace it executed."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from repro_torch.core import CacheConfig, execute, make
-    from repro_torch.core.types import hit_ratio
-    from repro_torch.kernels import ops
+def plan_trace(n_requests: int, seq_rounds: int) -> tuple:
+    """Phases 3-5's YCSB-A trace over LANES lanes, and the lane plan of
+    its first n_requests (phase 3's): (keys, is_write, rows planned,
+    plan, plan_s)."""
     from repro_torch.workloads.gen import interleave, ycsb
     from repro_torch.workloads.plan import pack_rows
-
     t0 = time.perf_counter()
     keys, wr = ycsb("A", n_requests + (seq_rounds + ADAPTIVE_ROWS) * LANES,
                     n_keys=N_KEYS, seed=SEED)
@@ -809,7 +911,21 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
     log(f"trace: {T * LANES} requests over {N_KEYS} keys, {LANES} lanes; "
         f"gen {gen_s:.1f} s; lane plan at batch {BATCH}: {gp.n_groups} "
         f"groups, fill {gp.fill:.3f}, plan_s {plan_s:.2f}")
+    return k2, w2, T, gp, plan_s
 
+
+def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
+                  results: dict) -> tuple:
+    """Phases 3 and 4; returns the run's numbers, the plan and the
+    trace it executed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import CacheConfig, execute, make
+    from repro_torch.core.types import hit_ratio
+    from repro_torch.kernels import ops
+
+    k2, w2, T, gp, plan_s = plan_trace(n_requests, seq_rounds)
     cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY,
                       backend="fused")
     out = dict(requests=int(gp.n_scheduled), groups=gp.n_groups,
@@ -838,10 +954,15 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
                             evictions=int(r.stats.evictions),
                             peak_mib=peak / 2**20, launches=launches)
     compare_runs("grouped", res["fused"], res["reference"])
-    out["whole_column_ops"] = check_step_traffic(dev, cfg, gp)
+    out["step_ops"] = check_step_traffic(dev, cfg, gp)
     launches = out["fused"]["launches"]
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    # One launch of each kernel a step: the probe (with the insert path's
+    # facts) once, the apply's three write groups in one drop_scatter.
+    if len(set(launches.values())) != 1:
+        raise AssertionError(f"the fused step's kernels launched unequally: "
+                             f"{launches}")
     if out["reference"]["launches"] != {k: 0 for k in launches}:
         raise AssertionError("the reference backend launched a kernel")
     for name, n in launches.items():
@@ -903,12 +1024,19 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
     return out, gp, k2[:T]
 
 
-def whole_column_ops(dev, cfg, gp) -> list:
+# Operators that launch no device work: allocations and views.
+NO_KERNEL = ("empty", "view", "reshape", "expand", "select", "slice",
+             "unsqueeze", "squeeze", "permute", "alias", "as_strided", "lift",
+             "detach")
+
+
+def step_ops(dev, cfg, gp) -> tuple:
     """The operators of one eager grouped step (the plan's first group, on
-    a fresh cache of ``cfg``) whose result has a whole column's rows or
-    more, as (operator, shape).  The hand-written kernels are called
-    through ctypes, not as operators, so their in-place writes are not
-    among them; allocations (``empty``) move no bytes and are left out."""
+    a fresh cache of ``cfg``): (every operator, in order; those whose
+    result has a whole column's rows or more, as (operator, shape)).  The
+    hand-written kernels are called through ctypes, not as operators, so
+    they are not among them; allocations (``empty``) move no bytes and
+    are left out of the second list."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
@@ -916,16 +1044,17 @@ def whole_column_ops(dev, cfg, gp) -> list:
     from repro_torch.core.cache import access_group_
 
     n = cfg.n_slots
-    seen = []
+    called, whole = [], []
 
     class Watch(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
+            called.append(str(func))
             if "empty" not in str(func):
-                seen.extend((str(func), tuple(t.shape))
-                            for t in tree_leaves(out)
-                            if isinstance(t, torch.Tensor) and t.dim()
-                            and t.shape[0] >= n)
+                whole.extend((str(func), tuple(t.shape))
+                             for t in tree_leaves(out)
+                             if isinstance(t, torch.Tensor) and t.dim()
+                             and t.shape[0] >= n)
             return out
 
     c = make(cfg, LANES, SEED, device=dev)
@@ -938,28 +1067,33 @@ def whole_column_ops(dev, cfg, gp) -> list:
     step()                                     # builds and counters first
     with Watch():
         step()
-    return seen
+    return called, whole
 
 
 def check_step_traffic(dev, cfg, gp) -> dict:
     """Phase 3's step check: the fused step returns no whole column but the
     two of the ``bytes_cached`` reduction (``size == 255`` and the masked
     sizes), so it moves no column through a clone, copy, concatenation or
-    fill; the reference step's whole-column operators are listed."""
+    fill; the reference step's whole-column operators are listed.  Both
+    steps' operators are counted: all of them, and those that may launch
+    device work (no allocation or view)."""
     import dataclasses
     out = {}
     for backend in ("fused", "reference"):
-        ops = whole_column_ops(dev, dataclasses.replace(cfg, backend=backend),
-                               gp)
-        out[backend] = ops
-        log(f"one eager {backend} step: {len(ops)} operators return a whole "
-            f"column ({cfg.n_slots} rows): "
-            + (", ".join(f"{o} {list(sh)}" for o, sh in ops) or "none"))
-    fused = [o for o, _ in out["fused"]]
+        called, whole = step_ops(dev, dataclasses.replace(cfg, backend=backend),
+                                 gp)
+        work = [o for o in called if not any(k in o for k in NO_KERNEL)]
+        out[backend] = dict(operators=len(called), device_ops=len(work),
+                            whole_column=whole)
+        log(f"one eager {backend} step: {len(called)} operators, "
+            f"{len(work)} of them neither an allocation nor a view; "
+            f"{len(whole)} return a whole column ({cfg.n_slots} rows): "
+            + (", ".join(f"{o} {list(sh)}" for o, sh in whole) or "none"))
+    fused = [o for o, _ in out["fused"]["whole_column"]]
     if (len(fused) != 2 or not fused[0].startswith("aten.eq")
             or not fused[1].startswith("aten.where")):
         raise AssertionError(f"the fused step moves whole columns: "
-                             f"{out['fused']}")
+                             f"{out['fused']['whole_column']}")
     log("the fused step: no whole-column clone, copy, concatenation or fill; "
         "only the bytes_cached reduction reads the size column whole")
     return out
@@ -1014,8 +1148,10 @@ def profile_steps(dev, card: str, gp, trace, n_groups: int,
                                        out_dir if k == n_groups else None))
         step = {kind: (t - cats[0].get(kind, 0.0)) / n_groups
                 for kind, t in cats[1].items()}
+        n_kernels = step.pop("kernels")
         log(f"    the step alone ({2 * n_groups} less {n_groups} steps), "
-            f"device {sum(step.values()):.0f} us/step; by kind, us/step: "
+            f"device {sum(step.values()):.0f} us/step in {n_kernels:.0f} "
+            f"kernels/step; by kind, us/step: "
             + ", ".join(f"{c} {t:.1f}" for c, t in
                         sorted(step.items(), key=lambda x: -x[1])))
 
@@ -1041,25 +1177,27 @@ def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
             rows.append((t, e.count, e.key))
     rows.sort(reverse=True)
     total = sum(t for t, _, _ in rows)
+    launched = sum(n for _, n, _ in rows)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / f"profile_{tag}.txt").write_text("".join(
             f"{t:12.1f} us {n:8d} x  {k}\n" for t, n, k in rows))
     log(f"[{card}] profile {tag}: {n_steps} steps, device "
-        f"{total / n_steps:.0f} us/step, wall "
+        f"{total / n_steps:.0f} us/step in {launched / n_steps:.0f} "
+        f"kernels/step, wall "
         f"{wall_s * 1e6 / n_steps:.0f} us/step, device busy "
         f"{total / 1e6 / wall_s:.3f} of the wall; top kernels:")
     for t, n, k in rows[:8]:
         log(f"    {t / n_steps:9.1f} us/step  {n // n_steps:5d}/step"
             f"  {k[:90]}")
-    cats: dict = {}
+    cats: dict = {"kernels": launched}
     for t, n, k in rows:
         c = next((c for c, keys in PROFILE_GROUPS
                   if any(key in k for key in keys)), "other")
         cats[c] = cats.get(c, 0.0) + t
     log("    by kind, us/step: " + ", ".join(
         f"{c} {t / n_steps:.1f}" for c, t in
-        sorted(cats.items(), key=lambda x: -x[1])))
+        sorted(cats.items(), key=lambda x: -x[1]) if c != "kernels"))
     return cats
 
 
@@ -1529,7 +1667,9 @@ def replay_page_cache(dev, pc, lookups, launches) -> dict:
     from repro_torch.serve import DittoPageCache
 
     def compare_ints(tag, got, want):
-        for i, (g, w) in enumerate(zip(got, want)):
+        flat = lambda out: [t for o in out
+                            for t in (o if isinstance(o, tuple) else (o,))]
+        for i, (g, w) in enumerate(zip(flat(got), flat(want))):
             same_int(f"{tag}[{i}]", g, w)
 
     def compare_cols(tag, got, want):
@@ -1561,16 +1701,22 @@ def replay_page_cache(dev, pc, lookups, launches) -> dict:
                      f"{checked['hit_metadata_update']}", args[:3], want)
         checked["hit_metadata_update"] += 1
 
-    def held_scatter(idx, cols, srcs, _op=ops.drop_scatter_op_):
-        want = tuple(c.clone() for c in cols)
-        ref.drop_scatter_ref(idx, want, srcs)
-        _op(idx, cols, srcs)
+    def held_scatter(groups, _op=ops.drop_scatter_groups_op_):
+        # Each written column once (a column is in several groups).
+        cols = list({id(c): c for g in groups for c in g[1]}.values())
+        want = {id(c): c.clone() for c in cols}
+        ref.drop_scatter_groups_ref(
+            [(g[0], tuple(want[id(c)] for c in g[1])) + tuple(g[2:])
+             for g in groups])
+        _op(groups)
         compare_cols("page cache drop_scatter launch "
-                     f"{checked['drop_scatter']}", cols, want)
+                     f"{checked['drop_scatter']}", cols,
+                     [want[id(c)] for c in cols])
         checked["drop_scatter"] += 1
 
     patches += [mock.patch.object(ops, "hit_metadata_update_op_", held_meta),
-                mock.patch.object(ops, "drop_scatter_op_", held_scatter)]
+                mock.patch.object(ops, "drop_scatter_groups_op_",
+                                  held_scatter)]
 
     runs = {}
     for where in (dev, "cpu"):
@@ -1620,6 +1766,11 @@ def main() -> int:
                     help="also trace this many grouped steps per backend "
                          "and twice as many (the difference is the step "
                          "alone), one yi-9b prefill and 8 decode steps")
+    ap.add_argument("--step-only", action="store_true",
+                    help="only plan phase 3's trace, count one eager step's "
+                         "operators per backend and, with --profile, trace "
+                         "the steps: no kernel check and no result lines "
+                         "(it runs on an older checkout's src/ too)")
     a = ap.parse_args()
 
     if not (SRC / "repro_torch").is_dir():
@@ -1644,9 +1795,17 @@ def main() -> int:
     runtime.lib()
     log(f"built {len(runtime.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    if a.step_only:
+        from repro_torch.core import CacheConfig
+        k2, w2, T, gp, _ = plan_trace(a.requests, 0)
+        check_step_traffic(dev, CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC,
+                                            capacity=CAPACITY), gp)
+        if a.profile:
+            profile_steps(dev, card, gp, k2[:T], a.profile, None)
+        return 0
 
     results: dict = {}
-    check_kernels(dev, results)
+    floor_ms = check_kernels(dev, results)
     e2e, plan, trace = run_main_path(dev, card, a.requests, SEQ_ROUNDS,
                                      results)
     if a.profile:
@@ -1678,6 +1837,8 @@ def main() -> int:
         # No Pallas kernel: XLA's in-place drop-mode scatters of the apply.
         "drop_scatter": "src/repro/core/cache.py:636"}
     extra = ("eager_ms", "copy_ms", "copy_bound_ms", "wrapper_ms",
+             "ms_alone", "bound_ms_alone", "ms_insert_group",
+             "bound_ms_insert_group",
              "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
              "row_err_32k", "controls", "layer_row_err", "ms_pairs",
              "ms_one_slot", "launches_gemma_2b", "layer_row_err_gemma_2b",
@@ -1695,7 +1856,7 @@ def main() -> int:
             replaces=replaces[name], launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=by, library_ms=r.get("library_ms"),
+            bound_by=by, library_ms=r.get("library_ms"), floor_ms=floor_ms,
             **{k: r[k] for k in extra if k in r}))
     if a.out:
         out = Path(a.out)

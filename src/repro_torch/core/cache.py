@@ -257,28 +257,32 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     step_rng = prng.fold_in(rng_b, ts_req)
     lane_b = torch.arange(C, device=dev).repeat(G)                 # [B]
 
-    # 1. Bucket probe (+ the embedded-history match).
-    kh = hash_key(keys_b)
-    bucket = bucket_of(kh, cfg.n_buckets)
-    bslots = bucket[:, None] * A + torch.arange(A, device=dev)[None, :]
-    b_key = state.key[bslots]
-    b_size = state.size[bslots]
-    b_hash = state.key_hash[bslots]
-    b_ptr = state.ptr[bslots]
-
-    live = _is_live(b_size)
-    is_hist = b_size == SIZE_HISTORY
-    h_age = _hist_age(state.hist_ctr, b_ptr)
-    h_valid = is_hist & (h_age < cfg.history_len)
-
+    # 1. Bucket probe (+ the embedded-history match).  The fused probe
+    #    also returns what the insert path (4) needs of the same bucket.
     if fused:
-        found, slot, hist_found, hslot = kops.access_probe_op(
+        found, slot, hist_found, hslot, facts = kops.access_probe_op(
             state.key, state.size, state.key_hash, state.ptr, keys_b,
-            state.hist_ctr, assoc=A, history_len=cfg.history_len)
+            state.hist_ctr, assoc=A, history_len=cfg.history_len,
+            meta=(state.insert_ts, state.last_ts, state.freq), ts=ts_req,
+            experts=names)
+        kh, bucket = facts.key_hash, facts.bucket
         found = found & op
         hist_found = hist_found & op
         slot = torch.where(found, slot, -1)
     else:
+        kh = hash_key(keys_b)
+        bucket = bucket_of(kh, cfg.n_buckets)
+        bslots = bucket[:, None] * A + torch.arange(A, device=dev)[None, :]
+        b_key = state.key[bslots]
+        b_size = state.size[bslots]
+        b_hash = state.key_hash[bslots]
+        b_ptr = state.ptr[bslots]
+
+        live = _is_live(b_size)
+        is_hist = b_size == SIZE_HISTORY
+        h_age = _hist_age(state.hist_ctr, b_ptr)
+        h_valid = is_hist & (h_age < cfg.history_len)
+
         match = live & (b_key == keys_b[:, None]) & op[:, None]
         found = match.any(dim=1)
         slot = torch.where(found, _pick(bslots, _argmax(match)), -1)
@@ -354,18 +358,24 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     winner = _first_winner(bucket, want_insert)
     dropped = want_insert & ~winner
 
-    free = (b_size == SIZE_EMPTY) | (is_hist & ~h_valid)     # [B, A]
-    has_free = free.any(dim=1)
-    free_slot = _pick(bslots, _argmax(free))
+    if fused:
+        free_slot, has_free = facts.free_slot, facts.has_free
+        fb_hist_slot, has_valid_hist = facts.hist_slot, facts.has_hist
+        has_live = facts.has_live
+        fb_obj_slot = _pick(facts.cand, e_choice)
+    else:
+        free = (b_size == SIZE_EMPTY) | (is_hist & ~h_valid)  # [B, A]
+        has_free = free.any(dim=1)
+        free_slot = _pick(bslots, _argmax(free))
 
-    b_md = _md_view(state, bslots, ts_req[:, None])
-    b_prio_e = _take_expert(prio.priorities(b_md, names), e_choice)
-    b_prio_e = torch.where(live, b_prio_e, _INF)
-    fb_obj_slot = _pick(bslots, b_prio_e.argmin(dim=1))
-    hist_age_in_bucket = torch.where(h_valid, h_age.to(F32), -_INF)
-    fb_hist_slot = _pick(bslots, hist_age_in_bucket.argmax(dim=1))
-    has_valid_hist = h_valid.any(dim=1)
-    has_live = live.any(dim=1)
+        b_md = _md_view(state, bslots, ts_req[:, None])
+        b_prio_e = _take_expert(prio.priorities(b_md, names), e_choice)
+        b_prio_e = torch.where(live, b_prio_e, _INF)
+        fb_obj_slot = _pick(bslots, b_prio_e.argmin(dim=1))
+        hist_age_in_bucket = torch.where(h_valid, h_age.to(F32), -_INF)
+        fb_hist_slot = _pick(bslots, hist_age_in_bucket.argmax(dim=1))
+        has_valid_hist = h_valid.any(dim=1)
+        has_live = live.any(dim=1)
 
     fallback_hist = winner & ~has_free & has_valid_hist
     fallback_obj = winner & ~has_free & ~has_valid_hist & has_live
@@ -452,34 +462,35 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     result_vals = state.values[slot0]
 
     # 6. Apply, in place and in the JAX package's order: the hit metadata,
-    #    SET payloads and sizes (last writer wins within the group),
-    #    inserts, then evictions (so a victim that collides with a
-    #    bucket-fallback overwrite target nets out exactly in n_cached).
-    #    Every read of the step-entry table is above this point.
+    #    then one drop_scatter of three write groups: SET payloads and
+    #    sizes (last writer wins within the group), inserts, then
+    #    evictions (so a victim that collides with a bucket-fallback
+    #    overwrite target nets out exactly in n_cached).  Every read of
+    #    the step-entry table is above this point.
     if fused:
         kops.hit_metadata_update_op_(state.freq, state.last_ts, state.ext,
                                      slot_hit, ts_req, emit_slot, emit_delta)
-        write = kops.drop_scatter_op_
+        write = kops.drop_scatter_groups_op_
     else:
-        write = kref.drop_scatter_ref
-        write(upd_idx, (state.last_ts, state.ext), (hit_last, hit_ext))
+        kref.drop_scatter_ref(upd_idx, (state.last_ts, state.ext),
+                              (hit_last, hit_ext))
         # The FC-flush FAA: a no-op emit adds 0 to slot 0; then the u32
         # wrap at the slots it touched.
         state.freq.index_add_(0, torch.clamp(emit_slot, min=0),
                               torch.where(emit_slot >= 0, emit_delta, 0))
-        write(emit_slot, (state.freq,),
-              (state.freq[torch.clamp(emit_slot, min=0)] & M32,))
+        kref.drop_scatter_ref(emit_slot, (state.freq,),
+                              (state.freq[torch.clamp(emit_slot, min=0)]
+                               & M32,))
+        write = kref.drop_scatter_groups_ref
     set_idx = torch.where(hit & is_write, slot, n_slots)
-    write(_lww_idx(set_idx, n_slots), (state.values, state.size),
-          (values, obj_size))
-    write(torch.where(ins_ok, ins_slot, n_slots),
-          tuple(getattr(state, f) for f in WRITTEN),
-          (keys_b, kh, obj_size, 0, ts_req, ts_req, 1,
-           prio.fresh_ext(ts_req, (B,)), values))
-    write(torch.where(ev_winner, victims, n_slots),
-          (state.size, state.ptr, state.insert_ts),
-          (torch.where(write_hist, SIZE_HISTORY, SIZE_EMPTY),
-           torch.where(write_hist, hist_ids, 0), bmap))
+    write(((_lww_idx(set_idx, n_slots), (state.values, state.size),
+            (values, obj_size)),
+           (ins_slot, tuple(getattr(state, f) for f in WRITTEN),
+            (keys_b, kh, obj_size, 0, ts_req, ts_req, 1,
+             prio.fresh_ext(ts_req, (B,)), values), ins_ok),
+           (victims, (state.size, state.ptr, state.insert_ts),
+            ((write_hist, SIZE_HISTORY, SIZE_EMPTY), (write_hist, hist_ids, 0),
+             bmap), ev_winner)))
 
     n_cached = state.n_cached + plain.sum() + fallback_hist.sum() - n_evict
     # Byte occupancy, recomputed exactly from the final size column: the

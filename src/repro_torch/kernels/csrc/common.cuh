@@ -1,6 +1,6 @@
 // Device code shared by the cache kernels: the key hash, the expert
-// priorities and the warp argmin.  Header-only; every function is inline
-// and internal to the translation unit that includes it.
+// priorities and the tile and warp argmins.  Header-only; every function
+// is inline and internal to the translation unit that includes it.
 
 #pragma once
 
@@ -33,11 +33,11 @@ __device__ __forceinline__ float priority(int code, float sz, float ins,
   }
 }
 
-// (v, i) := the warp's least v, the least i among equal v (jnp.argmin's
-// first-index rule when i is the window position).
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
+// (v, i) := the least v over each aligned tile of `width` lanes (a power
+// of two, at most 32), the least i among equal v (jnp.argmin's first-index
+// rule when i is the position).  Every lane of the warp takes part.
+__device__ __forceinline__ void tile_argmin(float& v, int& i, int width) {
+  for (int d = width >> 1; d > 0; d >>= 1) {
     const float ov = __shfl_xor_sync(FULL, v, d);
     const int oi = __shfl_xor_sync(FULL, i, d);
     if (ov < v || (ov == v && oi < i)) {
@@ -45,6 +45,11 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
       i = oi;
     }
   }
+}
+
+// tile_argmin over the whole warp.
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+  tile_argmin(v, i, 32);
 }
 
 }  // namespace

@@ -20,10 +20,13 @@
 // below one launch's latency.  Design, as ranked_eviction's: one warp per
 // op; lanes read 32 consecutive window slots at a time (coalesced),
 // __ballot_sync + __popc rank the live ones, and the scan stops once K
-// are found (W > 32 is a loop over 32-slot chunks).  The K sampled
-// positions are compacted onto lanes 0..K-1 through shared memory, so
-// each expert's argmin is one warp reduction on (value, position), the
-// earlier window position winning ties as jnp.argmin does.  The
+// are found (W > 32 is a loop over 32-slot chunks).  For K <= 32 the K
+// sampled positions are compacted onto lanes 0..K-1 through shared
+// memory, so each expert's argmin is one warp reduction on (value,
+// position), the earlier window position winning ties as jnp.argmin does.
+// A sample of K > 32 is kept in a per-op scratch row (the wrapper's, in
+// device memory), ceil(K / 32) entries a lane, and each argmin is a min
+// over the lane's entries, then the same warp reduction.  The
 // hyperbolic priority divides with round-to-nearest, so it rounds as the
 // plain version's f32 division does.  The clock is read through a
 // pointer when the caller holds it on the card (no host sync), else
@@ -38,6 +41,7 @@ namespace {
 
 constexpr int WARPS = 4;
 
+template <bool WIDE>
 __global__ void __launch_bounds__(WARPS * 32) sampled_eviction_kernel(
     const float* __restrict__ size, const float* __restrict__ ins_ts,
     const float* __restrict__ last_ts, const float* __restrict__ freq,
@@ -45,13 +49,14 @@ __global__ void __launch_bounds__(WARPS * 32) sampled_eviction_kernel(
     const int64_t* __restrict__ e_choice, const float* __restrict__ clock_ptr,
     float clock_val, const int* __restrict__ codes, int B, int W, int K,
     int E, int64_t* __restrict__ victim, int64_t* __restrict__ cand,
-    unsigned long long* __restrict__ launches) {
+    int* wpos, unsigned long long* __restrict__ launches) {
   __shared__ int spos[WARPS][32];
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * WARPS + w;
   if (b >= B) return;  // warp-uniform
+  int* pos_row = WIDE ? wpos + (int64_t)b * K : nullptr;
 
   // 1. The sample: the first K live window positions.
   const int64_t off = offsets[b];
@@ -66,29 +71,50 @@ __global__ void __launch_bounds__(WARPS * 32) sampled_eviction_kernel(
     }
     const unsigned m = __ballot_sync(FULL, live);
     const int r = cnt + __popc(m & ((1u << lane) - 1u));
-    if (live && r < K) spos[w][r] = j;
+    if (live && r < K) {
+      if (WIDE)
+        pos_row[r] = j;
+      else
+        spos[w][r] = j;
+    }
     cnt += __popc(m);
   }
   __syncwarp();
   cnt = min(cnt, K);
+  const float clock = clock_ptr ? clock_ptr[0] : clock_val;
+  const int64_t choice = e_choice[b];
+  int64_t chosen = -1;
 
-  // 2. Lane i < cnt holds sample i; every expert's argmin candidate.
+  // 2. Every expert's argmin candidate: for K <= 32 lane i < cnt holds
+  //    sample i; a wider sample is walked from the scratch row, sample i
+  //    on lane i mod 32 (in window order, so a lane keeps its earlier
+  //    entry on a tie).
   const bool have = lane < cnt;
-  const int pos = have ? spos[w][lane] : 0;
+  const int pos = !WIDE && have ? spos[w][lane] : 0;
   float sz = 0.f, ins = 0.f, last = 0.f, fr = 0.f;
-  if (have) {
+  if (!WIDE && have) {
     sz = size[off + pos];
     ins = ins_ts[off + pos];
     last = last_ts[off + pos];
     fr = freq[off + pos];
   }
-  const float clock = clock_ptr ? clock_ptr[0] : clock_val;
-  const int64_t choice = e_choice[b];
-  int64_t chosen = -1;
   for (int e = 0; e < E; ++e) {
-    float v =
-        have ? priority(codes[e], sz, ins, last, fr, clock) : CUDART_INF_F;
-    int ix = have ? pos : 0x7fffffff;
+    float v = CUDART_INF_F;
+    int ix = 0x7fffffff;
+    if (WIDE) {
+      for (int i = lane; i < cnt; i += 32) {
+        const int64_t at = off + pos_row[i];
+        const float p = priority(codes[e], size[at], ins_ts[at], last_ts[at],
+                                 freq[at], clock);
+        if (p < v) {
+          v = p;
+          ix = pos_row[i];
+        }
+      }
+    } else if (have) {
+      v = priority(codes[e], sz, ins, last, fr, clock);
+      ix = pos;
+    }
     warp_argmin(v, ix);
     // An all-infinite sample ranks its first window position, as
     // argmin over the inf-masked window does.
@@ -106,12 +132,19 @@ extern "C" int sampled_eviction_launch(
     const float* freq, int64_t N, const int64_t* offsets,
     const int64_t* e_choice, const float* clock_ptr, float clock_val,
     const int* codes, int B, int W, int K, int E, int64_t* victim,
-    int64_t* cand, unsigned long long* launches, void* stream) {
+    int64_t* cand, int* wpos, unsigned long long* launches, void* stream) {
   if (B > 0) {
-    sampled_eviction_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0,
-                              (cudaStream_t)stream>>>(
-        size, ins_ts, last_ts, freq, N, offsets, e_choice, clock_ptr,
-        clock_val, codes, B, W, K, E, victim, cand, launches);
+    const dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
+    if (K > 32) {
+      if (!wpos) return (int)cudaErrorInvalidValue;
+      sampled_eviction_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+          size, ins_ts, last_ts, freq, N, offsets, e_choice, clock_ptr,
+          clock_val, codes, B, W, K, E, victim, cand, wpos, launches);
+    } else {
+      sampled_eviction_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+          size, ins_ts, last_ts, freq, N, offsets, e_choice, clock_ptr,
+          clock_val, codes, B, W, K, E, victim, cand, nullptr, launches);
+    }
   }
   return (int)cudaGetLastError();
 }

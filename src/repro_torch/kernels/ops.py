@@ -1,6 +1,7 @@
 """The op wrappers of the hand-written kernels: the four cache kernels
-of ``core.access`` (the probe, the in-place hit-metadata update, the
-ranked eviction and the apply's ``drop_scatter``), the flash-attention
+of ``core.access`` (the probe with the insert path's bucket facts, the
+in-place hit-metadata update, the ranked eviction and the apply's
+``drop_scatter``, one launch for all its write groups), the flash-attention
 kernel of the LM prefill, and the three cache kernels that only this
 entry point reaches (``sampled_eviction_op``, ``bucket_lookup_op``,
 ``metadata_update_op``, the JAX package's ``repro.kernels.ops`` forms).
@@ -31,16 +32,16 @@ from repro_torch.kernels.metadata_update import (hit_metadata_update_,
                                                  metadata_update)
 from repro_torch.kernels.runtime import launch_counts as launches
 from repro_torch.kernels.runtime import reset_counts as reset_launches
-from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS, MAX_SAMPLES,
+from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS,
                                                   ranked_eviction,
                                                   sampled_eviction)
-from repro_torch.kernels.scatter import MAX_COLS, drop_scatter
+from repro_torch.kernels.scatter import MAX_COLS, MAX_GROUPS, drop_scatter
 
 __all__ = ["access_probe_op", "hit_metadata_update_op",
            "hit_metadata_update_op_", "ranked_eviction_op", "drop_scatter_op_",
-           "flash_attention_op", "sampled_eviction_op", "bucket_lookup_op",
-           "metadata_update_op", "KERNEL_EXPERTS", "launches",
-           "reset_launches"]
+           "drop_scatter_groups_op_", "flash_attention_op",
+           "sampled_eviction_op", "bucket_lookup_op", "metadata_update_op",
+           "KERNEL_EXPERTS", "launches", "reset_launches"]
 
 I64, F32, BOOL = torch.int64, torch.float32, torch.bool
 
@@ -90,22 +91,39 @@ def _dispatch(op: str, device, kernel, plain, *args, **kw):
 
 
 def access_probe_op(table_key, table_size, table_hash, table_ptr, keys,
-                    hist_ctr, *, assoc: int, history_len: int):
-    """Bucket match + embedded-history match for u32 keys [B]."""
+                    hist_ctr, *, assoc: int, history_len: int, meta=None,
+                    ts=None, experts=None):
+    """Bucket match + embedded-history match for u32 keys [B]: (found,
+    slot, hist_found, hist_slot).  Given ``meta``, the table's
+    (insert_ts, last_ts, freq) columns, with each op's timestamp ``ts``
+    i64[B] and the ``experts``, a fifth output: the insert path's facts
+    about each key's bucket (``ref.ProbeFacts``) from the same read."""
     dev = keys.device
     n = table_key.shape[0]
     B = keys.shape[0]
-    if n % assoc:
+    if not 0 < assoc <= n or n % assoc:
         raise ValueError(f"access_probe: {n} slots is not a multiple of "
                          f"assoc={assoc}")
-    _check("access_probe", dev, table_key=(table_key, I64, (n,)),
-           table_size=(table_size, I64, (n,)),
-           table_hash=(table_hash, I64, (n,)),
-           table_ptr=(table_ptr, I64, (n,)), keys=(keys, I64, (B,)),
-           hist_ctr=(hist_ctr, I64, ()))
+    spec = dict(table_key=(table_key, I64, (n,)),
+                table_size=(table_size, I64, (n,)),
+                table_hash=(table_hash, I64, (n,)),
+                table_ptr=(table_ptr, I64, (n,)), keys=(keys, I64, (B,)),
+                hist_ctr=(hist_ctr, I64, ()))
+    kw = dict(assoc=assoc, history_len=history_len)
+    if (meta is None) != (ts is None) or (meta is None) != (experts is None):
+        raise ValueError("access_probe: meta, ts and experts go together")
+    if meta is not None:
+        if len(meta) != 3:
+            raise ValueError("access_probe: meta is the (insert_ts, last_ts, "
+                             "freq) columns")
+        spec.update({f"meta{i}": (m, I64, (n,)) for i, m in enumerate(meta)},
+                    ts=(ts, I64, (B,)))
+        kw.update(meta=tuple(meta), ts=ts,
+                  experts=_experts("access_probe", experts))
+    _check("access_probe", dev, **spec)
     args = (table_key, table_size, table_hash, table_ptr, keys, hist_ctr)
     return _dispatch("access_probe", dev, access_probe, ref.access_probe_ref,
-                     *args, assoc=assoc, history_len=history_len)
+                     *args, **kw)
 
 
 def hit_metadata_update_op_(freq, last_ts, ext, hit_slots, hit_ts,
@@ -133,34 +151,81 @@ def hit_metadata_update_op(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
     return out
 
 
-def drop_scatter_op_(idx, cols, srcs) -> None:
-    """In place, for each column of ``cols`` (all of one length n, [n] or
-    [n, W], int64 or f32): ``col[idx[b]] = src[b]`` where
-    ``0 <= idx[b] < n``, and nothing for any other index (``idx`` i64[B]).
-    Each ``src`` is a [B] or [B, W] tensor of its column's dtype, or an
-    integer written to every such row of an int64 column.  In-range
-    indices must be unique, or their entries write equal rows."""
-    dev = idx.device
+def _scatter_source(k, col, src, B: int, spec: dict) -> None:
+    """Check source ``k`` of ``col``: a [B] or [B, W] tensor of the
+    column's dtype, an integer (an int64 column), or ``(cond, a, b)``
+    with ``cond`` bool[B] and ``a``, ``b`` each of the first two forms."""
+    if isinstance(src, tuple):
+        if len(src) != 3:
+            raise TypeError(f"drop_scatter: source {k} is (cond, a, b)")
+        spec[f"cond{k}"] = (src[0], BOOL, (B,))
+        for part, x in zip("ab", src[1:]):
+            if isinstance(x, tuple):
+                raise TypeError(f"drop_scatter: source {k}{part} is a tensor "
+                                "or an integer")
+            _scatter_source(f"{k}{part}", col, x, B, spec)
+    elif torch.is_tensor(src):
+        spec[f"src{k}"] = (src, col.dtype, (B,) + tuple(col.shape[1:]))
+    elif not (isinstance(src, numbers.Integral) and col.dtype == I64):
+        raise TypeError(f"drop_scatter: source {k} must be a tensor, an "
+                        "integer for an int64 column, or (cond, a, b)")
+
+
+def _scatter_group(group, dev) -> tuple:
+    """A checked write group (idx, cols, srcs, mask)."""
+    if len(group) not in (3, 4):
+        raise ValueError("drop_scatter: a group is (idx, cols, srcs) or "
+                         "(idx, cols, srcs, mask)")
+    idx, cols, srcs, mask = (*group, None)[:4]
     B = idx.shape[0]
     if not 0 < len(cols) == len(srcs) <= MAX_COLS:
         raise ValueError(f"drop_scatter: {len(cols)} columns and "
                          f"{len(srcs)} sources (1 to {MAX_COLS} of each)")
     n = cols[0].shape[0]
+    if n >= 2**31 or B >= 2**31:
+        raise ValueError(f"drop_scatter: {n} rows, {B} entries (each under "
+                         "2^31)")
     spec = dict(idx=(idx, I64, (B,)))
+    if mask is not None:
+        spec["mask"] = (mask, BOOL, (B,))
     for k, (col, src) in enumerate(zip(cols, srcs)):
         if col.dtype not in (I64, F32) or col.dim() not in (1, 2):
             raise TypeError(f"drop_scatter: column {k} is {col.dtype} of "
                             f"{col.dim()} dims (int64 or f32, 1 or 2 dims)")
-        row = tuple(col.shape[1:])
-        spec[f"col{k}"] = (col, col.dtype, (n,) + row)
-        if torch.is_tensor(src):
-            spec[f"src{k}"] = (src, col.dtype, (B,) + row)
-        elif not (isinstance(src, numbers.Integral) and col.dtype == I64):
-            raise TypeError(f"drop_scatter: source {k} must be a tensor, or "
-                            "an integer for an int64 column")
+        spec[f"col{k}"] = (col, col.dtype, (n,) + tuple(col.shape[1:]))
+        _scatter_source(k, col, src, B, spec)
     _check("drop_scatter", dev, **spec)
-    _dispatch("drop_scatter", dev, drop_scatter, ref.drop_scatter_ref, idx,
-              tuple(cols), tuple(srcs))
+    return idx, tuple(cols), tuple(srcs), mask
+
+
+def drop_scatter_op_(idx, cols, srcs, mask=None) -> None:
+    """In place, for each column of ``cols`` (all of one length n, [n] or
+    [n, W], int64 or f32): ``col[idx[b]] = src[b]`` where
+    ``0 <= idx[b] < n`` and ``mask[b]`` (bool[B], if given), and nothing
+    for any other entry (``idx`` i64[B]).  Each ``src`` is a [B] or
+    [B, W] tensor of its column's dtype, an integer written to every such
+    row of an int64 column, or ``(cond, a, b)``: ``a`` where ``cond[b]``,
+    else ``b``, each a tensor or an integer.  Kept in-range indices must
+    be unique, or their entries write equal rows; no source may be a
+    column written."""
+    drop_scatter_groups_op_(((idx, cols, srcs, mask),))
+
+
+def drop_scatter_groups_op_(groups) -> None:
+    """:func:`drop_scatter_op_` for each group ``(idx, cols, srcs)`` or
+    ``(idx, cols, srcs, mask)`` in order, in one launch on the card: a
+    later group's write of a (row, column) wins over an earlier one's.
+    At most ``MAX_GROUPS`` groups and ``MAX_COLS`` columns in all."""
+    groups = tuple(groups)
+    if not 0 < len(groups) <= MAX_GROUPS:
+        raise ValueError(f"drop_scatter: {len(groups)} groups (1 to "
+                         f"{MAX_GROUPS})")
+    dev = groups[0][0].device
+    groups = tuple(_scatter_group(g, dev) for g in groups)
+    if sum(len(g[1]) for g in groups) > MAX_COLS:
+        raise ValueError(f"drop_scatter: more than {MAX_COLS} columns in all")
+    _dispatch("drop_scatter", dev, drop_scatter, ref.drop_scatter_groups_ref,
+              groups)
 
 
 def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
@@ -176,9 +241,9 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     experts = _experts("ranked_eviction", experts)
     if not 0 < window <= n:
         raise ValueError(f"ranked_eviction: window={window} for {n} slots")
-    if not 0 < k <= min(window, MAX_SAMPLES):
-        raise ValueError(f"ranked_eviction: k={k} must be in [1, "
-                         f"min(window, {MAX_SAMPLES})]")
+    if not 0 < k <= window:
+        raise ValueError(f"ranked_eviction: k={k} must be in [1, window="
+                         f"{window}]")
     cols = dict(size=(size, I64, (n,)), insert_ts=(insert_ts, I64, (n,)),
                 last_ts=(last_ts, I64, (n,)), freq=(freq, I64, (n,)),
                 offsets=(offsets, I64, (B,)), e_choice=(e_choice, I64, (B,)),
@@ -214,15 +279,15 @@ def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     if not 0 < window <= n:
         raise ValueError(f"sampled_eviction: window={window} for {n} "
                          "padded slots")
-    if not 0 < k <= MAX_SAMPLES:
-        raise ValueError(f"sampled_eviction: k={k} must be in [1, "
-                         f"{MAX_SAMPLES}]")
     _check("sampled_eviction", dev, size=(size, F32, (n,)),
            insert_ts=(insert_ts, F32, (n,)), last_ts=(last_ts, F32, (n,)),
            freq=(freq, F32, (n,)), offsets=(offsets, I64, (B,)),
            e_choice=(e_choice, I64, (B,)))
     args = (size, insert_ts, last_ts, freq, offsets, e_choice,
             _clock("sampled_eviction", clock, dev))
+    if not 0 < k <= window:
+        raise ValueError(f"sampled_eviction: k={k} must be in [1, window="
+                         f"{window}]")
     return _dispatch("sampled_eviction", dev, sampled_eviction,
                      ref.sampled_eviction_ref, *args, window=window, k=k,
                      experts=experts)

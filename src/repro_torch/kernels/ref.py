@@ -15,6 +15,8 @@ wrappers in ``kernels/ops.py`` run these for tensors on the CPU, and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.hashing import bucket_of, hash_key
@@ -69,21 +71,64 @@ def bucket_lookup_ref(table_key, table_size, keys, *, assoc: int):
     return found, slot
 
 
+class ProbeFacts(NamedTuple):
+    """What the cache step's insert path needs of each probed key's
+    bucket, from the probe's own read of it.  A slot that no rule picks
+    is the bucket base (the argmin or argmax of a row with no candidate)."""
+    key_hash: torch.Tensor   # i64[B] the key's hash (u32)
+    bucket: torch.Tensor     # i64[B]
+    free_slot: torch.Tensor  # i64[B] first empty or aged-out history slot
+    has_free: torch.Tensor   # bool[B]
+    hist_slot: torch.Tensor  # i64[B] oldest valid history entry
+    has_hist: torch.Tensor   # bool[B] a valid history entry exists
+    has_live: torch.Tensor   # bool[B]
+    cand: torch.Tensor       # i64[B, E + 1]: each expert's argmin over the
+    #                          live slots; [:, E] the first live slot
+
+
+def _pick(slots, pos):
+    return torch.gather(slots, 1, pos[:, None])[:, 0]
+
+
 def access_probe_ref(table_key, table_size, table_hash, table_ptr, keys,
-                     hist_ctr, *, assoc: int, history_len: int):
+                     hist_ctr, *, assoc: int, history_len: int, meta=None,
+                     ts=None, experts=None):
     """Bucket match + embedded-history match.
 
     Returns (found bool[B], slot i64[B] (-1 miss), hist_found bool[B],
-    hist_slot i64[B] (bucket base where nothing matches))."""
+    hist_slot i64[B] (bucket base where nothing matches)).  Given
+    ``meta``, the table's (insert_ts, last_ts, freq) columns, with each
+    op's timestamp ``ts`` i64[B] and the ``experts``, also the bucket's
+    :class:`ProbeFacts`, ranked as the cache step's insert path ranks
+    them (``core/cache.py``, the JAX package's ``cache.py:396-413``): an
+    expert's argmin over the live slots at the op's ``ts``, and the
+    argmin at an expert choice of E, where the gather of a missing
+    expert reads NaN and argmin takes the first NaN."""
     kh, slots, sz, found, slot = _bucket_match(table_key, table_size, keys,
                                                assoc)
     age = (hist_ctr - table_ptr[slots]) & M32
-    h_match = (sz == 255) & (age < history_len) & (table_hash[slots]
-                                                  == kh[:, None])
+    is_hist = sz == 255
+    h_valid = is_hist & (age < history_len)
+    h_match = h_valid & (table_hash[slots] == kh[:, None])
     hist_found = h_match.any(dim=1) & ~found
-    hslot = torch.gather(slots, 1, h_match.to(torch.int32).argmax(
-        dim=1, keepdim=True))[:, 0]
-    return found, slot, hist_found, hslot
+    hslot = _pick(slots, h_match.to(torch.int32).argmax(dim=1))
+    out = (found, slot, hist_found, hslot)
+    if meta is None:
+        return out
+    live = (sz > 0) & (sz < 255)
+    free = (sz == 0) | (is_hist & ~h_valid)
+    ins, last, freq = (m[slots].to(torch.float32) for m in meta)
+    pr = priorities_ref(sz.to(torch.float32), ins, last, freq,
+                        ts.to(torch.float32)[:, None], experts)  # [B, A, E]
+    pr = torch.cat([pr, torch.full_like(pr[..., :1], float("nan"))], dim=-1)
+    pr = torch.where(live[..., None], pr, _INF)
+    cand = torch.gather(slots, 1, pr.argmin(dim=1))              # [B, E + 1]
+    h_age = torch.where(h_valid, age.to(torch.float32), -_INF)
+    return out + (ProbeFacts(
+        key_hash=kh, bucket=slots[:, 0] // assoc,
+        free_slot=_pick(slots, free.to(torch.int32).argmax(dim=1)),
+        has_free=free.any(dim=1), hist_slot=_pick(slots, h_age.argmax(dim=1)),
+        has_hist=h_valid.any(dim=1), has_live=live.any(dim=1), cand=cand),)
 
 
 def hit_metadata_update_ref(freq, last_ts, ext, hit_slots, hit_ts,
@@ -123,30 +168,52 @@ def hit_metadata_update_ref_(freq, last_ts, ext, hit_slots, hit_ts,
         col.copy_(new)
 
 
-def drop_scatter_ref(idx, cols, srcs) -> None:
-    """In place, for each column: ``col[idx[b]] = src[b]`` (a row of the
-    tensor ``src``, or the number ``src``) where ``0 <= idx[b] < n``, the
-    columns' common length; other entries write nothing.  In-range indices
-    are unique, or their entries write equal rows.
+def _source(src, col, B: int) -> torch.Tensor:
+    """A drop_scatter source as a [B, ...] tensor of the column's dtype:
+    a tensor as it is, a number in every row, and ``(cond, a, b)`` as
+    ``a`` where ``cond`` holds, else ``b``."""
+    if isinstance(src, tuple):
+        cond, a, b = src
+        return torch.where(cond.reshape((B,) + (1,) * (col.dim() - 1)),
+                           _source(a, col, B), _source(b, col, B))
+    if torch.is_tensor(src):
+        return src
+    return col.new_full((B,) + tuple(col.shape[1:]), src)
 
-    No host sync, so a CUDA graph can hold it: an out-of-range entry
-    repeats the first in-range entry's write, or, where no entry is in
-    range, writes row 0's own value back."""
+
+def drop_scatter_ref(idx, cols, srcs, mask=None) -> None:
+    """In place, for each column: ``col[idx[b]] = src[b]`` (see
+    :func:`_source`) where ``0 <= idx[b] < n``, the columns' common
+    length, and ``mask[b]`` (if given); other entries write nothing.
+    In-range kept indices are unique, or their entries write equal rows.
+
+    No host sync, so a CUDA graph can hold it: a dropped entry repeats
+    the first kept entry's write, or, where none is kept, writes row 0's
+    own value back."""
     n, B = cols[0].shape[0], idx.shape[0]
     if B == 0:
         return
     ok = (idx >= 0) & (idx < n)
+    if mask is not None:
+        ok = ok & mask
     # [1]-shaped gathers: a 0-d index tensor would be read on the host.
     j = ok.to(torch.int32).argmax().reshape(1)
     any_ok = ok.index_select(0, j)
     tgt = torch.where(ok, idx, torch.where(any_ok, idx.index_select(0, j), 0))
     for col, src in zip(cols, srcs):
-        if not torch.is_tensor(src):
-            src = col.new_full((B,) + tuple(col.shape[1:]), src)
+        src = _source(src, col, B)
         row = (1,) * (col.dim() - 1)
         keep = torch.where(any_ok.reshape((1,) + row),
                            src.index_select(0, j), col[:1])
         col[tgt] = torch.where(ok.reshape((B,) + row), src, keep)
+
+
+def drop_scatter_groups_ref(groups) -> None:
+    """:func:`drop_scatter_ref` for each group ``(idx, cols, srcs)`` or
+    ``(idx, cols, srcs, mask)``, in order: a later group's write of a
+    row wins."""
+    for g in groups:
+        drop_scatter_ref(*g)
 
 
 def metadata_update_ref(freq, last_ts, slots, deltas, clock):

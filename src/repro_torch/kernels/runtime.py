@@ -44,21 +44,27 @@ L = ctypes.c_int64
 F = ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as void*).
 SIGNATURES = {
-    "access_probe_launch": [P, P, P, P, P, P, I, I, L, L, P, P, P, P, P, P],
+    "access_probe_launch": [P, P, P, P, P, P, I, I, L, L, P, P, P, P, P, P,
+                            P, P, P, I, P, P, P, P, P, P, P, P, P, P],
     "hit_metadata_update_launch": [P, P, P, P, P, I, P, P, I, P, P, P, P, P],
     "ranked_eviction_launch": [P, P, P, P, P, L, P, P, P, P, I, P, P, P, I, I,
-                               I, I, P, P, P, P],
+                               I, I, P, P, P, P, P, P],
     "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L,
                                L, L, L, L, L, P, P],
     "sampled_eviction_launch": [P, P, P, P, L, P, P, P, F, P, I, I, I, I, P, P,
-                                P, P],
+                                P, P, P],
     "bucket_lookup_launch": [P, P, P, I, I, L, P, P, P, P],
     "metadata_update_launch": [P, P, I, L, P, P, P, F, P, P, P, P, P, P],
-    "drop_scatter_launch": [P, I, L, I, P, P, P, P, P, P, P],
+    "drop_scatter_launch": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                            P],
+    "launch_floor_launch": [P],
 }
 KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction",
            "flash_attention", "sampled_eviction", "bucket_lookup",
            "metadata_update", "drop_scatter")
+# The empty kernel that chip_smoke.py times as the launch floor: no path
+# launches it and it has no counter.
+FLOOR = "launch_floor"
 
 _LIB = None
 _COUNTERS: dict = {}   # device -> int64[len(KERNELS)] launch counts
@@ -162,6 +168,12 @@ def reset_counts() -> None:
     """Set every launch counter to 0."""
     for t in _COUNTERS.values():
         t.zero_()
+
+
+def launch_floor(device) -> None:
+    """Launch the empty kernel on ``device``'s current stream."""
+    check(lib().launch_floor_launch(torch.cuda.current_stream(device)
+                                    .cuda_stream), FLOOR)
 
 
 def device_line(device: torch.device) -> str:

@@ -106,6 +106,29 @@ def test_execute_matches_jax(workload, plan, backend):
     assert int(tr.stats.regrets) > 0 and int(tr.stats.fc_flushes) > 0
 
 
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_execute_with_a_wide_sample_matches_jax(backend):
+    """``n_samples=33`` (a sample wider than one warp's 32 lanes, window
+    132) on both backends, sequential and grouped: the same decisions as
+    the JAX package, bit for bit in integer state."""
+    cfg_j, cfg_t = _cfgs(backend, n_samples=33)
+    keys, wr = _trace("A", n=960, seed=4)
+    half = keys.shape[0] // 2
+    jr = j_execute(j_make(cfg_j, C, 0), keys[:half], plan=None,
+                   is_write=wr[:half])
+    tr = t_execute(t_make(cfg_t, C, 0, device="cpu"), keys[:half], plan=None,
+                   is_write=wr[:half])
+    _assert_same(tr, jr)
+    jp = j_plan.plan_groups(keys[half:], cfg_j.n_buckets, 8, scope="strict",
+                            is_write=wr[half:])
+    tp = t_plan.plan_groups(keys[half:], cfg_t.n_buckets, 8, scope="strict",
+                            is_write=wr[half:])
+    jr2 = j_execute(jr.cache, keys[half:], plan=jp, is_write=wr[half:])
+    tr2 = t_execute(tr.cache, keys[half:], plan=tp, is_write=wr[half:])
+    _assert_same(tr2, jr2)
+    assert int(tr2.stats.evictions) > int(tr.stats.evictions) > 0
+
+
 def test_warm_state_carried_across_from_jax():
     """Both packages continue from one JAX-warmed table: the carried
     state makes the same decisions as the JAX state it came from."""

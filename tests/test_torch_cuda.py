@@ -39,9 +39,9 @@ from repro_torch.workloads import gen, plan
 
 EXPERTS = ("lru", "lfu", "fifo", "size", "hyperbolic")
 # The kernels of core.access and their launches a cache step: the apply's
-# three write groups (SET, insert, evict) are one drop_scatter each.
+# three write groups (SET, insert, evict) are one drop_scatter launch.
 CACHE_KERNELS = {"access_probe": 1, "hit_metadata_update": 1,
-                 "ranked_eviction": 1, "drop_scatter": 3}
+                 "ranked_eviction": 1, "drop_scatter": 1}
 C = 8
 
 
@@ -205,6 +205,127 @@ def test_in_place_kernels_match_plain_versions_on_the_card(cuda, seed, C, Bh,
     assert ops.launches()["drop_scatter"] == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 2048])
+@pytest.mark.parametrize("assoc", [4, 6, 8, 16, 64])
+def test_probe_forms_match_plain_versions_on_the_card(cuda, assoc, B):
+    """The probe alone and with the insert path's facts (one tile of
+    lanes a key; a 64-slot bucket in two 32-slot chunks), bit-equal to
+    the plain version: every expert choice's bucket argmin, E included."""
+    rng = np.random.default_rng(assoc * 7 + B)
+    n_buckets = max(8, 4096 // assoc)
+    tk, size, th, ptr = _table(rng, n_buckets, assoc, 3, 500)
+    n = n_buckets * assoc
+    size[: 2 * assoc] = 255                    # a bucket or two of history
+    size[2 * assoc: 3 * assoc] = rng.integers(1, 9, assoc)  # a full one
+    keys = _t(np.where(rng.random(B) < 0.5, rng.choice(tk[tk != 0], B),
+                       rng.integers(1, 2**32, B, dtype=np.uint64)), cuda)
+    args = (_t(tk, cuda), _t(size, cuda), _t(th, cuda), _t(ptr, cuda), keys,
+            torch.tensor(3, device=cuda))
+    meta = tuple(_t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+                 for _ in range(2)) + (_t(rng.integers(0, 6, n), cuda),)
+    kw = dict(assoc=assoc, history_len=500, meta=meta,
+              ts=_t(2**31 + rng.integers(0, 8, B), cuda), experts=EXPERTS)
+    ops.reset_launches()
+    got = ops.access_probe_op(*args, **kw)
+    want = ref.access_probe_ref(*args, **kw)
+    for g, w in zip(got[:4] + tuple(got[4]), want[:4] + tuple(want[4])):
+        assert torch.equal(g, w)
+    alone = ops.access_probe_op(*args, assoc=assoc, history_len=500)
+    for g, w in zip(alone, want[:4]):
+        assert torch.equal(g, w)
+    assert ops.launches()["access_probe"] == 2
+
+
+def _apply_groups(rng, dev, n, B, K, W=2):
+    """The cache step's nine columns (n rows) and its three write groups,
+    as a function of the columns they write: SET (last-writer-wins
+    indices), inserts (masked, all nine columns) and evictions (B * K
+    entries, masked, select sources)."""
+    u32 = lambda *shape: _t(rng.integers(0, 2**32, shape), dev)
+    cols = (u32(n), u32(n), _t(rng.integers(0, 9, n), dev), u32(n), u32(n),
+            u32(n), _t(rng.integers(0, 99, n), dev),
+            torch.from_numpy(rng.random((n, 4), np.float32)).to(dev),
+            u32(n, W))
+    val, sz, ts = u32(B, W), _t(rng.integers(1, 9, B), dev), u32(B)
+    set_idx = np.full(B, n)
+    m = rng.random(B) < 0.5
+    set_idx[m] = rng.choice(n, int(m.sum()), replace=False)
+    ins_ok = rng.random(B) < 0.3
+    ins_slot = rng.integers(0, n, B)
+    ins_slot[ins_ok] = rng.choice(n, int(ins_ok.sum()), replace=False)
+    ins_src = (_t(rng.integers(1, 2**32, B), dev), u32(B), sz, 0, ts, ts, 1,
+               torch.from_numpy(rng.random((B, 4), np.float32)).to(dev), val)
+    victims = np.where(rng.random(B * K) < 0.05,
+                       rng.integers(0, n, B * K), -1)
+    first = np.unique(victims, return_index=True)[1]
+    ev = np.zeros(B * K, bool)
+    ev[first] = victims[first] >= 0
+    hist = torch.from_numpy(rng.random(B * K) < 0.6).to(dev)
+    ev_src = ((hist, 255, 0), (hist, u32(B * K), 0),
+              _t(rng.integers(0, 8, B * K), dev))
+    args = [_t(a, dev) for a in (set_idx, ins_slot, victims)]
+    masks = [torch.from_numpy(a).to(dev) for a in (ins_ok, ev)]
+
+    def groups(c):
+        key, kh, size, ptr, ins, last, freq, ext, values = c
+        return ((args[0], (values, size), (val, sz)),
+                (args[1], c, ins_src, masks[0]),
+                (args[2], (size, ptr, ins), ev_src, masks[1]))
+    return cols, groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 64), (63, 512), (2048, 1 << 21)])
+def test_drop_scatter_groups_match_plain_version_on_the_card(cuda, B, n):
+    """The apply's three write groups in one launch, bit-equal to the plain
+    version group by group on copies of the same columns (the cache
+    cell's B = 2048 and B * K = 10,240 eviction entries on a
+    2,097,152-row table; collisions across groups included)."""
+    rng = np.random.default_rng(B)
+    cols, groups = _apply_groups(rng, cuda, n, B, 5)
+    got, want = [tuple(c.clone() for c in cols) for _ in range(2)]
+    ops.reset_launches()
+    ops.drop_scatter_groups_op_(groups(got))
+    ref.drop_scatter_groups_ref(groups(want))
+    assert all(map(_same_bits, got, want))
+    assert not all(map(_same_bits, got, cols))
+    assert ops.launches()["drop_scatter"] == (1 if cuda.type == "cuda" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 2048])
+@pytest.mark.parametrize("K", [5, 33, 64])
+def test_wide_samples_match_plain_versions_on_the_card(cuda, K, B):
+    """ranked_eviction and sampled_eviction at K <= 32 (the sample on one
+    warp's lanes) and K = 33, 64 (a scratch row, ceil(K / 32) entries a
+    lane), bit-equal to their plain versions, with quotas that peel most
+    of a wide sample."""
+    rng = np.random.default_rng(K + B)
+    n, W = 4096, max(20, 2 * K)
+    size = _t(rng.choice([0, 1, 2, 3, 8, 255], n), cuda)
+    last = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    freq = _t(rng.integers(0, 5, n), cuda)               # priority ties
+    ins = _t(rng.integers(0, 999, n), cuda)
+    rargs = (size, ins, last, freq, _t(rng.integers(0, n, B), cuda),
+             _t(rng.integers(0, 6, B), cuda),             # 5: no expert
+             torch.rand(B, device=cuda) < 0.8,
+             _t(rng.integers(0, 4 * K, B), cuda),
+             _t(1000 + rng.integers(0, 4, B), cuda))
+    kw = dict(window=W, k=K, experts=EXPERTS)
+    g = ops.ranked_eviction_op(*rargs, **kw)
+    w = ref.ranked_eviction_ref(*rargs, **kw)
+    assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    assert B == 1 or int((g[0] >= 0).sum(dim=1).max()) > min(K, 32) // 2
+    pad = lambda x: torch.cat([x.float(), x.new_zeros(W).float()])
+    offs = np.append(rng.integers(0, n, B - 1), n)        # last: the tail
+    sargs = (pad(size), pad(ins), pad(last), pad(freq), _t(offs, cuda),
+             _t(rng.integers(0, 5, B), cuda))
+    g = ops.sampled_eviction_op(*sargs, 1000.0, **kw)
+    w = ref.sampled_eviction_ref(*sargs, 1000.0, **kw)
+    assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
 def _ycsb(workload, n, n_keys, seed):
     keys, wr = gen.ycsb(workload, n, n_keys=n_keys, seed=seed)
     return keys, C, wr
@@ -255,6 +376,20 @@ def test_trace_on_the_card_matches_the_cpu(cuda, backend):
     steps = 2 + gp.n_groups + (keys.shape[0] - half)
     want = steps if backend == "fused" else 0
     assert launches == {k: want * CACHE_KERNELS.get(k, 0) for k in launches}
+
+
+@pytest.mark.cuda
+def test_wide_sample_trace_on_the_card_matches_the_cpu(cuda):
+    """n_samples=33 (the ranked eviction's sample wider than a warp): a
+    grouped segment graph-replayed on the card against the CPU run."""
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, n_samples=33,
+                      experts=("lru", "lfu", "hyperbolic"))
+    keys, wr = gen.interleave(*_ycsb("A", 2400, 400, 8))
+    gp = plan.pack_rows(keys, cfg.n_buckets, 8, is_write=wr)
+    runs = [execute(make(cfg, C, 0, device=dev), keys, plan=gp, is_write=wr)
+            for dev in ("cpu", cuda)]
+    _same(*runs)
+    assert int(runs[1].stats.evictions) > 0
 
 
 @pytest.mark.cuda

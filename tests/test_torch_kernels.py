@@ -9,7 +9,10 @@ stands for, run in interpret mode as ``tests/test_kernels.py`` runs it:
 duplicates, -1 no-ops, odd batch sizes, history ages that wrap mod
 2^32, per-op quotas above one block, tenant filters and W = 128; the
 entry point's three on ``tests/test_kernels.py``'s own shapes, experts
-and seeds.  Integer outputs are bit-equal; the f32 ``ext`` column is
+and seeds; samples of K = 33 and 64, wider than a warp.  The probe's
+facts form is held against the JAX package's own step code
+(``repro/core/cache.py:396-413``), and the apply's multi-group
+``drop_scatter`` against XLA's drop-mode scatters group by group.  Integer outputs are bit-equal; the f32 ``ext`` column is
 held to ``assert_array_max_ulp(maxulp=4)`` (XLA and PyTorch round
 ``exp`` apart); ``metadata_update``'s ``freq`` is bit-equal on integer
 deltas and within ``rtol=1e-6`` on non-integer ones (the Pallas kernel
@@ -29,6 +32,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import cache as j_cache
+from repro.core import priority as j_prio
+from repro.core import types as j_types
+from repro.core.hashing import bucket_of as j_bucket_of
 from repro.core.hashing import hash_key as j_hash_key
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -95,6 +102,119 @@ def test_access_probe_matches_pallas(seed, n_buckets, assoc, B):
         assert np.array_equal(g.numpy(), np.asarray(w).astype(g.numpy().dtype))
     assert bool(got[0].any())
     assert bool(got[2].any()) or B < 8
+
+
+def _jax_insert_facts(cfg, tk, size, th, ptr, meta, keys, ts, e_choice,
+                      hist_ctr):
+    """The insert path's bucket quantities as the JAX package's step
+    computes them (``repro/core/cache.py:396-413``, with the bucket
+    gathers of its probe, ``:245-256``), on this table."""
+    U32, F32 = jnp.uint32, jnp.float32
+    state = j_types.init_cache(cfg)._replace(
+        key=jnp.asarray(tk), size=jnp.asarray(size), key_hash=jnp.asarray(th),
+        ptr=jnp.asarray(ptr), insert_ts=jnp.asarray(meta[0]),
+        last_ts=jnp.asarray(meta[1]), freq=jnp.asarray(meta[2]),
+        hist_ctr=jnp.uint32(hist_ctr))
+    A, names = cfg.assoc, cfg.experts
+    kh = j_hash_key(jnp.asarray(keys))
+    bucket = j_bucket_of(kh, cfg.n_buckets)
+    bslots = bucket[:, None] * A + jnp.arange(A)[None, :]
+    b_size = state.size[bslots]
+    b_ptr = state.ptr[bslots]
+    live = j_cache._is_live(b_size)
+    is_hist = b_size == j_types.SIZE_HISTORY
+    h_age = j_cache._hist_age(state.hist_ctr, b_ptr)
+    h_valid = is_hist & (h_age < U32(cfg.history_len))
+    ts_req = jnp.asarray(ts)
+    e_choice = jnp.asarray(e_choice)
+
+    free = (b_size == j_types.SIZE_EMPTY) | (is_hist & ~h_valid)
+    has_free = jnp.any(free, axis=1)
+    free_slot = jnp.take_along_axis(
+        bslots, jnp.argmax(free, axis=1)[:, None], axis=1)[:, 0]
+    b_md = j_cache._md_view(state, bslots, ts_req[:, None])
+    b_prio = j_prio.priorities(b_md, names)
+    b_prio_e = jnp.take_along_axis(
+        b_prio, e_choice[:, None, None], axis=2)[:, :, 0]
+    b_prio_e = jnp.where(live, b_prio_e, jnp.inf)
+    fb_obj_slot = jnp.take_along_axis(
+        bslots, jnp.argmin(b_prio_e, axis=1)[:, None], axis=1)[:, 0]
+    hist_age_in_bucket = jnp.where(h_valid, h_age.astype(F32), -jnp.inf)
+    fb_hist_slot = jnp.take_along_axis(
+        bslots, jnp.argmax(hist_age_in_bucket, axis=1)[:, None], axis=1)[:, 0]
+    has_valid_hist = jnp.any(h_valid, axis=1)
+    has_live = jnp.any(live, axis=1)
+    return dict(key_hash=kh, bucket=bucket, free_slot=free_slot,
+                has_free=has_free, hist_slot=fb_hist_slot,
+                has_hist=has_valid_hist, has_live=has_live,
+                fb_obj_slot=fb_obj_slot)
+
+
+@pytest.mark.parametrize("seed,n_buckets,assoc,B,case,experts", [
+    (0, 32, 4, 40, "mixed", EXPERTS), (1, 16, 6, 37, "mixed", EXPERTS),
+    (2, 32, 8, 64, "mixed", ("lru", "lfu")),
+    (3, 8, 16, 29, "mixed", ("hyperbolic", "fifo", "size")),
+    (4, 16, 8, 33, "all_history", EXPERTS), (5, 16, 8, 33, "full", EXPERTS),
+    (6, 4, 40, 11, "mixed", EXPERTS)])
+def test_access_probe_facts_match_the_jax_step(seed, n_buckets, assoc, B,
+                                               case, experts):
+    """The probe's facts form (the plain version the op runs on the CPU)
+    against the JAX package's own step code on the same table: the free
+    slot, the oldest valid history entry, the live test and the bucket
+    argmin of every expert choice, E (every cdf entry below the draw: the
+    gather reads NaN) included; buckets of history entries only, and
+    full buckets of live objects; assoc above one warp's 32 lanes."""
+    rng = np.random.default_rng(seed)
+    hist_ctr, history_len = 7, 40
+    tk, size, th, ptr = _table(rng, n_buckets, assoc, hist_ctr, history_len)
+    n = n_buckets * assoc
+    if case == "all_history":
+        size[:] = 255
+        ptr = ((hist_ctr - rng.integers(0, 2 * history_len, n))
+               % 2**32).astype(np.uint32)
+        ptr[:assoc] = ptr[0]                     # equal ages: ties
+    elif case == "full":
+        size = rng.integers(1, 9, n).astype(np.uint32)
+    ins = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    ins[: n // 2] = rng.integers(900, 1000, n // 2)   # small ages too
+    last = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    freq = rng.integers(0, 5, n).astype(np.uint32)    # priority ties
+    u = rng.random(B)
+    keys = np.where(u < 0.4, rng.choice(tk[tk != 0], B),
+                    rng.integers(1, 2**32, B, dtype=np.uint64))
+    keys = keys.astype(np.uint32)
+    keys[-1] = 0
+    ts = (1000 + rng.integers(0, 8, B)).astype(np.uint32)
+    E = len(experts)
+    cfg = j_types.CacheConfig(n_buckets=n_buckets, assoc=assoc,
+                              capacity=n // 2, hist_len=history_len,
+                              experts=experts)
+    got = ops.access_probe_op(
+        _t(tk), _t(size), _t(th), _t(ptr), _t(keys), torch.tensor(hist_ctr),
+        assoc=assoc, history_len=history_len,
+        meta=(_t(ins), _t(last), _t(freq)), ts=_t(ts), experts=experts)
+    facts = got[4]
+    plain = ops.access_probe_op(
+        _t(tk), _t(size), _t(th), _t(ptr), _t(keys), torch.tensor(hist_ctr),
+        assoc=assoc, history_len=history_len)
+    for g, w in zip(got[:4], plain):
+        assert torch.equal(g, w)
+    assert facts.cand.shape == (B, E + 1)
+    for e in range(E + 1):
+        want = _jax_insert_facts(cfg, tk, size, th, ptr, (ins, last, freq),
+                                 keys, ts, np.full(B, e, np.int32), hist_ctr)
+        assert np.array_equal(facts.cand[:, e].numpy(),
+                              np.asarray(want.pop("fb_obj_slot")))
+    for f, w in want.items():
+        g = getattr(facts, f).numpy()
+        assert np.array_equal(g, np.asarray(w).astype(g.dtype)), f
+    live = (size > 0) & (size < 255)
+    if case == "all_history":
+        assert not facts.has_live.any() and facts.has_hist.any()
+    if case == "full":
+        assert facts.has_live.all() and not facts.has_free.any()
+    if case == "mixed":
+        assert facts.has_free.any() and facts.has_hist.any() and live.any()
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +310,13 @@ def test_hit_metadata_update_writes_fresh_tensors():
     (1, 29, 16, 12, 4, EXPERTS, False),
     (2, 160, 7, 128, 5, EXPERTS, True),
     (3, 24, 33, 20, 5, ("hyperbolic", "size", "fifo"), True),
-    (4, 11, 5, 11, 3, ("lfu",), False)])
+    (4, 11, 5, 11, 3, ("lfu",), False),
+    (5, 300, 9, 132, 33, EXPERTS, True),
+    (6, 260, 13, 128, 64, ("lru", "lfu"), False),
+    (7, 90, 6, 64, 64, ("size", "hyperbolic"), False)])
 def test_ranked_eviction_matches_pallas(seed, C, B, W, K, experts, filt):
+    """K > 32 (a sample wider than one warp's lanes) with quotas that
+    peel most of it."""
     rng = np.random.default_rng(seed)
     size = rng.choice([0, 1, 2, 3, 8, 255], C).astype(np.uint32)
     ins = rng.integers(0, 2**32, C, dtype=np.uint64).astype(np.uint32)
@@ -203,7 +328,7 @@ def test_ranked_eviction_matches_pallas(seed, C, B, W, K, experts, filt):
     offs = rng.integers(0, C, B).astype(np.int32)
     ech = rng.integers(0, len(experts), B).astype(np.int32)
     must = rng.random(B) < 0.8
-    quota = rng.integers(0, 5, B).astype(np.int32)
+    quota = rng.integers(0, 5 if K <= 32 else 4 * K, B).astype(np.int32)
     ts = (1000 + rng.integers(0, 8, B)).astype(np.uint32)
     tfilt = np.where(rng.random(B) < 0.5, -1,
                      rng.integers(0, 3, B)).astype(np.int32)
@@ -282,6 +407,25 @@ def test_sampled_eviction_matches_pallas(rng, C, W, B, experts):
     assert np.array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
     assert np.array_equal(gc.numpy(), np.asarray(wc).astype(np.int64))
     assert gv[-1] == -1 and (gc[-1] == -1).all()
+    assert int((gv >= 0).sum()) > B // 2
+
+
+@pytest.mark.parametrize("C,W,B,k", [(1024, 128, 16, 33), (512, 64, 8, 64),
+                                     (2048, 132, 24, 64)])
+def test_sampled_eviction_wide_sample_matches_pallas(rng, C, W, B, k):
+    """K > 32: a sample wider than one warp's lanes."""
+    size, ins, last, freq = _eviction_table(rng, C, W, live_frac=0.6)
+    freq[: C // 2] = 7.0                        # priority ties
+    offs = rng.integers(0, C, B).astype(np.int32)
+    offs[-1] = C                                # a window in the empty tail
+    choice = rng.integers(0, len(EXPERTS), B).astype(np.int32)
+    wv, wc = jops.sampled_eviction_op(size, ins, last, freq, offs, choice,
+                                      1000.0, window=W, k=k, experts=EXPERTS)
+    gv, gc = ops.sampled_eviction_op(_f(size), _f(ins), _f(last), _f(freq),
+                                     _t(offs), _t(choice), 1000.0, window=W,
+                                     k=k, experts=EXPERTS)
+    assert np.array_equal(gv.numpy(), np.asarray(wv).astype(np.int64))
+    assert np.array_equal(gc.numpy(), np.asarray(wc).astype(np.int64))
     assert int((gv >= 0).sum()) > B // 2
 
 
@@ -497,6 +641,79 @@ def test_drop_scatter_writes_nothing_at_the_dropped_index():
         ops.drop_scatter_op_(_t([0]), (col, _t([1, 2])), (1, 2))
 
 
+@pytest.mark.parametrize("seed,n,B,case", [
+    (0, 12, 9, "mixed"), (1, 40, 33, "mixed"), (2, 7, 5, "all_dropped"),
+    (3, 16, 16, "one_slot")])
+def test_drop_scatter_groups_match_xla_group_by_group(seed, n, B, case):
+    """Three write groups in one call against ``.at[idx].set(src,
+    mode="drop")`` applied group by group in JAX: a later group's write
+    of a (slot, column) wins over an earlier one's, a masked entry writes
+    nothing, an all-dropped group writes nothing, and a ``(cond, a, b)``
+    source writes ``a`` where ``cond`` holds, else ``b``."""
+    rng = np.random.default_rng(seed)
+    W = 2
+    cols = (rng.integers(0, 2**32, n).astype(np.uint32),
+            rng.random((n, W)).astype(np.float32),
+            rng.integers(0, 2**32, (n, W)).astype(np.uint32))
+    got = (_t(cols[0]), torch.from_numpy(cols[1].copy()), _t(cols[2]))
+    want = [jnp.asarray(c) for c in cols]
+    groups, kept = [], []
+    for g in range(3):
+        # Unique in-range indices within the group, the rest out of range.
+        idx = rng.permutation(n + B)[:B].astype(np.int64)
+        idx[rng.random(B) < 0.2] = -1
+        mask = rng.random(B) < 0.7
+        if case == "one_slot":                  # every group writes slot 3
+            idx[:] = n
+            idx[g], mask[g] = 3, True
+        if case == "all_dropped" and g == 1:
+            idx[:] = np.where(rng.random(B) < 0.5, n, -1)
+        cond = rng.random(B) < 0.5
+        a = rng.integers(0, 2**32, B).astype(np.uint32)
+        b = rng.random((B, W)).astype(np.float32)
+        c = rng.integers(0, 2**32, (B, W)).astype(np.uint32)
+        keep = (idx >= 0) & (idx < n) & (mask if g else True)
+        kept.append(set(idx[keep].tolist()))
+        ji = jnp.asarray(np.where(keep, idx, n).astype(np.int32))
+        want = [w.at[ji].set(jnp.asarray(x), mode="drop") for w, x in zip(
+            want, (np.where(cond, a, 9), b, np.where(cond[:, None], 5, c)))]
+        tc = torch.from_numpy(cond)
+        groups.append((_t(idx), got, ((tc, _t(a), 9), torch.from_numpy(b),
+                                      (tc, 5, _t(c))))
+                      + ((torch.from_numpy(mask),) if g else ()))
+    ops.drop_scatter_groups_op_(groups)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(g.numpy().dtype))
+    if case == "all_dropped":
+        assert not kept[1]
+    else:                                       # collisions across groups
+        assert kept[0] & kept[1] or kept[1] & kept[2] or kept[0] & kept[2]
+
+
+def test_drop_scatter_groups_check_their_arguments():
+    col = _t([1, 2, 3])
+    one = (_t([0]), (col,), (_t([7]),))
+    with pytest.raises(ValueError, match="groups"):
+        ops.drop_scatter_groups_op_(())
+    with pytest.raises(ValueError, match="groups"):
+        ops.drop_scatter_groups_op_((one,) * 5)
+    with pytest.raises(ValueError, match="in all"):
+        ops.drop_scatter_groups_op_(((_t([0]), (col,) * 12, (1,) * 12),
+                                     (_t([0]), (col,) * 5, (1,) * 5)))
+    with pytest.raises(TypeError, match="cond"):
+        ops.drop_scatter_op_(_t([0]), (col,), ((torch.ones(1).bool(), 1),))
+    with pytest.raises(TypeError, match="tensor or an integer"):
+        ops.drop_scatter_op_(_t([0]), (col,), ((torch.ones(1).bool(), 1,
+                                                (torch.ones(1).bool(), 1,
+                                                 2)),))
+    with pytest.raises(TypeError, match="bool"):
+        ops.drop_scatter_op_(_t([0]), (col,), (_t([7]),), _t([1]))
+    ops.drop_scatter_op_(_t([0, 2]), (col,), ((torch.tensor([True, False]),
+                                              _t([8, 8]), 4),),
+                         torch.tensor([True, True]))
+    assert col.tolist() == [8, 2, 4]
+
+
 # ---------------------------------------------------------------------------
 # the op wrappers
 # ---------------------------------------------------------------------------
@@ -515,6 +732,13 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     ops.hit_metadata_update_op_(_t([0, 0]), _t([0, 0]), torch.zeros(2, 4),
                                 _t([1]), _t([3]), _t([-1]), _t([0]))
     ops.drop_scatter_op_(_t([1, 2]), (_t([0, 0]),), (_t([5, 6]),))
+    ops.drop_scatter_groups_op_(((_t([1]), (_t([0, 0]),), (3,)),
+                                 (_t([0]), (_t([0]),), (4,),
+                                  torch.tensor([True]))))
+    z = _t([0] * 8)
+    ops.access_probe_op(z, z, z, z, _t([1]), torch.tensor(0), assoc=4,
+                        history_len=8, meta=(z, z, z), ts=_t([1]),
+                        experts=("lru",))
     assert ops.launches() == {"access_probe": 0, "hit_metadata_update": 0,
                               "ranked_eviction": 0, "flash_attention": 0,
                               "sampled_eviction": 0, "bucket_lookup": 0,
@@ -554,9 +778,13 @@ def test_wrappers_check_their_arguments():
                                 window=4, experts=("lrfu",))
     with pytest.raises(ValueError, match="window"):
         ops.sampled_eviction_op(col, col, col, col, one, one, 1.0, window=9)
-    with pytest.raises(ValueError, match="k="):
+    with pytest.raises(ValueError, match="k="):    # k > window
         ops.sampled_eviction_op(col, col, col, col, one, one, 1.0, window=8,
-                                k=33)
+                                k=9)
+    with pytest.raises(ValueError, match="k="):
+        ops.ranked_eviction_op(z, z, z, z, _t([0]), _t([0]),
+                               torch.tensor([True]), torch.tensor(1), _t([1]),
+                               window=2, k=3, experts=("lru",))
     with pytest.raises(TypeError, match="clock"):
         ops.sampled_eviction_op(col, col, col, col, one, one,
                                 torch.tensor(1), window=4)
@@ -583,12 +811,15 @@ def test_each_cuda_source_carries_its_note_and_entry_point():
     assert set(srcs) == {"access_probe", "hit_metadata_update",
                          "ranked_eviction", "flash_attention",
                          "sampled_eviction", "bucket_lookup",
-                         "metadata_update", "drop_scatter"}
-    assert set(srcs) == set(runtime.KERNELS)
+                         "metadata_update", "drop_scatter", "launch_floor"}
+    # The launch floor is the empty yardstick kernel: no path, no counter.
+    assert set(srcs) == set(runtime.KERNELS) | {runtime.FLOOR}
     for name, text in srcs.items():
         assert f"extern \"C\" int {name}_launch(" in text
-        # drop_scatter stands for XLA's in-place scatters, not a Pallas kernel.
-        assert ("replaces no Pallas kernel" if name == "drop_scatter"
+        # drop_scatter stands for XLA's in-place scatters, not a Pallas
+        # kernel, and the floor stands for nothing.
+        assert ("replaces no Pallas kernel"
+                if name in ("drop_scatter", runtime.FLOOR)
                 else "Replaces the Pallas kernel") in text
         assert "Bound on the H100" in text
         assert "cudaGetLastError()" in text
