@@ -30,13 +30,19 @@ Phases, each of which raises (exit code != 0) on any failure:
    on the card, over a random 2,097,152-slot table made with numpy from
    a seed, at B = 64 and B = 2048 with duplicates, -1 no-ops, every hit
    on one slot, flushes on exactly the hit slots, history ages that
-   wrap, quota > 1 and tenant filters.  Every output must be bit-equal.
+   wrap, quota > 1 and tenant filters.  ``ranked_eviction``'s draw form
+   (the cache step's: each op's threefry draw, expert choice and victim
+   bitmaps in the kernel) at B = 1, 63 and 2048, K = 5, 33 and 64, E = 1,
+   2 and 5, with lanes whose cdf stays below every draw (choice E, no
+   victim), a scalar or a per-op quota and timestamps that wrap past
+   2^32.  Every output must be bit-equal.
    An empty kernel is timed first, the launch floor.  Each kernel and
    its plain version are timed with CUDA events at the main path's
    shapes (the in-place ones on copies of the columns, with no copy in
-   the time); the probe alone, the insert group alone, and
-   ``hit_metadata_update``'s functional form, which copies the three
-   columns first, on their own.
+   the time; ``ranked_eviction`` in its draw form); the probe alone, the
+   insert group alone, ``ranked_eviction`` given the draw's offsets and
+   choices, and ``hit_metadata_update``'s functional form, which copies
+   the three columns first, on their own.
    Then the three kernels that only the ``kernels.ops`` entry point
    reaches: ``bucket_lookup``, ``sampled_eviction`` (f32 columns padded
    at the tail by W = 20, 128 and 132 with empty slots, K = 5, 33 and
@@ -60,11 +66,13 @@ Phases, each of which raises (exit code != 0) on any failure:
    launched, each as often as the others (once a step: the probe with
    its facts, and one ``drop_scatter`` for the apply's three write
    groups), and the cache must have evicted.  One eager grouped step of
-   each backend runs under a dispatch mode that counts its operators and
-   lists every one returning a whole column (2,097,152 rows or more):
-   the fused step's must be the ``bytes_cached`` reduction's two and
-   nothing else (no clone, copy, concatenation or fill of a column; its
-   kernels write the table in place).
+   each backend runs under a dispatch mode that counts its operators
+   (and the bitwise ops and shifts among them) and lists every one
+   returning a whole column (2,097,152 rows or more): the fused step's
+   must be the ``bytes_cached`` reduction's two and nothing else (no
+   clone, copy, concatenation or fill of a column; its kernels write the
+   table in place), and it must call no ``core.prng`` function (its
+   threefry draw is in the eviction kernel).
 4. End to end, sequential: 1,000 more rounds at ``plan=None`` from the
    warmed caches, checked the same way.
 5. End to end, adaptive: 2,000 more rounds through ``execute()`` with
@@ -494,8 +502,8 @@ def check_kernels(dev, results: dict) -> float:
             same_int(f"{tag}.cand", got[1], want[1])
             if int((got[0] >= 0).sum()) == 0:
                 raise AssertionError("ranked_eviction took no victim")
-        shapes[("ranked_eviction", B)] = (rargs, rkw)
         log(f"kernels agree with their plain versions at B={B}")
+    check_draw_form(dev, rng, t["size"], (ins, last, freq), shapes)
 
     # Timing at the main path's shape (B = G * C = 2048) on this table.
     # The in-place kernels write copies of the columns, so the later
@@ -504,7 +512,8 @@ def check_kernels(dev, results: dict) -> float:
     from repro_torch.kernels import runtime
     from repro_torch.kernels.bucket_lookup import access_probe
     from repro_torch.kernels.metadata_update import hit_metadata_update_
-    from repro_torch.kernels.sampled_eviction import ranked_eviction
+    from repro_torch.kernels.sampled_eviction import (ranked_eviction,
+                                                      ranked_eviction_draw)
     from repro_torch.kernels.scatter import drop_scatter
     floor_ms = time_ms(lambda: runtime.launch_floor(dev))
     log(f"launch floor: an empty kernel takes {floor_ms * 1e3:.2f} us a "
@@ -515,10 +524,13 @@ def check_kernels(dev, results: dict) -> float:
     timed = {"hit_metadata_update": (tuple(a.clone() for a in margs[:3])
                                      + margs[3:], {}),
              "drop_scatter": ((four(groups),), {})}
+    # ranked_eviction in the main path's form (the draw form), then the
+    # form given the same offsets and choices.
     kern = {"access_probe": (access_probe, ref.access_probe_ref),
             "hit_metadata_update": (hit_metadata_update_,
                                     ref.hit_metadata_update_ref_),
-            "ranked_eviction": (ranked_eviction, ref.ranked_eviction_ref),
+            "ranked_eviction": (ranked_eviction_draw,
+                                ref.ranked_eviction_draw_ref),
             "drop_scatter": (drop_scatter, ref.drop_scatter_groups_ref)}
     for name, (k_fn, p_fn) in kern.items():
         args, kw = timed.get(name, shapes[(name, 2048)])
@@ -533,6 +545,17 @@ def check_kernels(dev, results: dict) -> float:
             f"device ({r['eager_ms'] * 1e3:.2f} us launched from Python), "
             f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes']} bytes)")
+    args, kw = shapes[("ranked_eviction_given", 2048)]
+    r = results["ranked_eviction"]
+    r["ms_given"] = time_ms(lambda: ranked_eviction(*args, **kw))
+    r["plain_ms_given"] = time_ms(lambda: ref.ranked_eviction_ref(*args,
+                                                                  **kw))
+    r["bound_ms_given"] = (bound_bytes("ranked_eviction_given", args, kw)
+                           / HBM_BYTES_PER_S * 1e3)
+    log(f"ranked_eviction given the same offsets and choices: "
+        f"{r['ms_given'] * 1e3:.2f} us, plain "
+        f"{r['plain_ms_given'] * 1e3:.2f} us, bound "
+        f"{r['bound_ms_given'] * 1e3:.3f} us")
     # The other forms: the probe alone (the entry point's and the tests'),
     # and the insert write as one group (the apply's launch before it
     # took all three groups at once).
@@ -564,6 +587,65 @@ def check_kernels(dev, results: dict) -> float:
     check_entry_point(dev, rng, t, dict(ins=ins, last=last, freq=freq), live,
                       probe_keys, results)
     return floor_ms
+
+
+def check_draw_form(dev, rng, size, meta, shapes: dict) -> None:
+    """Phase 2: ranked_eviction's draw form (the fused step's: each op's
+    threefry draw, expert choice and victim bitmaps in the kernel) against
+    its plain version on the full table, at B = 1, 63 and 2048, K = 5, 33
+    and 64 (W = 20, 66, 128) and E = 1, 2 and 5: 64 lanes' keys, every
+    seventh lane's weights summing below 1e-30 (a cdf below every draw:
+    the choice E, which takes no victim), a per-op or a scalar quota, and
+    timestamps that wrap past 2^32.  Then the main path's shape (B = 2048
+    in 32 rounds of 64 lanes, W = 20, K = 5, lru and lfu, one quota) for
+    the timing, in both forms on the same offsets and choices."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import _expert_cdf
+    from repro_torch.kernels import ops, ref
+
+    def inputs(B, experts, starve):
+        w = rng.random((LANES, len(experts))).astype(np.float32) + 1e-4
+        if starve:
+            w[::7] = 1e-32
+        keys = rng.integers(0, 2**32, (LANES, 2), dtype=np.uint64)
+        return (torch.from_numpy(keys.astype(np.int64)).to(dev),
+                _expert_cdf(torch.from_numpy(w)).to(dev),
+                torch.from_numpy(rng.random(B) < 0.8).to(dev))
+
+    n = size.shape[0]
+    for B in (1, 63, 2048):
+        ts = torch.from_numpy((2**32 - 16 + np.arange(B) // LANES)
+                              % 2**32).to(dev)
+        for W, K in ((20, 5), (66, 33), (128, 64)):
+            for experts in (("hyperbolic",), ("lru", "lfu"), EXPERTS_ALL):
+                E = len(experts)
+                keys, cdf, must = inputs(B, experts, True)
+                quota = (torch.tensor(2, device=dev) if B == 63 else
+                         torch.from_numpy(rng.integers(0, 4 * K, B)).to(dev))
+                args = (size, *meta, keys, cdf, must, quota, ts)
+                kw = dict(window=W, k=K, experts=experts)
+                got = ops.ranked_eviction_draw_op(*args, **kw)
+                want = ref.ranked_eviction_draw_ref(*args, **kw)
+                tag = f"ranked_eviction draw[B={B},W={W},K={K},E={E}]"
+                for name, g, w in zip(("victims", "cand", "e_choice", "bmap"),
+                                      got, want):
+                    same_int(f"{tag}.{name}", g, w)
+                if B == 2048 and not (bool((got[2] == E).any())
+                                      and int((got[0] >= 0).sum()) > 0):
+                    raise AssertionError(f"{tag}: no choice E or no victim")
+    log("ranked_eviction's draw form agrees with its plain version at "
+        "B = 1, 63, 2048 x K = 5, 33, 64 x E = 1, 2, 5 (bit-equal; lanes "
+        "whose cdf stays below the draw choose E and take no victim)")
+    B = 2048
+    keys, cdf, must = inputs(B, ("lru", "lfu"), False)
+    ts = torch.from_numpy(1_000_000 + np.arange(B) // LANES).to(dev)
+    kw = dict(window=20, k=5, experts=("lru", "lfu"))
+    args = (size, *meta, keys, cdf, must, torch.tensor(2, device=dev), ts)
+    shapes[("ranked_eviction", B)] = (args, kw)
+    offs, ech = ref.eviction_draw_ref(keys, cdf, ts, n)
+    shapes[("ranked_eviction_given", B)] = (
+        (size, *meta, offs, ech, must, args[-2], ts), kw)
 
 
 def same_bits(name, got, want) -> None:
@@ -833,6 +915,20 @@ def bound_bytes(name: str, args, kw) -> int:
         return int((hit.numel() + hts.numel() + emit.numel()
                     + delta.numel()) * 8 + hs * (8 + 8 + 16) + hs * (8 + 16)
                    + es * (8 + 8))
+    # ranked_eviction, given each op's offset and choice or drawing them.
+    if name == "ranked_eviction":
+        # The draw form: instead of offsets and choices, each lane's key
+        # (16 B) and cdf row (4E B) in, the choice and the victims'
+        # bitmaps out.
+        from repro_torch.kernels import ref
+        size, ins, last, freq, keys, cdf, must, quota, ts = args
+        offs, ech = ref.eviction_draw_ref(keys, cdf, ts, size.shape[0])
+        K = kw["k"]
+        B = ts.shape[0]
+        return (bound_bytes("ranked_eviction_given", (
+            size, ins, last, freq, offs, ech, must, quota, ts), kw)
+            - B * (8 + 8) + keys.numel() * 8 + cdf.numel() * 4
+            + B * (8 + K * 8))
     size, ins, last, freq, offs, ech, must, quota, ts = args
     W, K = kw["window"], kw["k"]
     E = len(kw["experts"])
@@ -848,8 +944,8 @@ def bound_bytes(name: str, args, kw) -> int:
     sampled = elig & (cum <= K)
     n_scan = torch.unique(idx[scanned]).numel()
     n_samp = torch.unique(idx[sampled]).numel()
-    return int(n_scan * 8 + n_samp * 3 * 8 + B * (8 + 8 + 1 + 8 + 8)
-               + B * (K + E) * 8)
+    return int(n_scan * 8 + n_samp * 3 * 8 + B * (8 + 8 + 1 + 8)
+               + quota.numel() * 8 + B * (K + E) * 8)
 
 
 # ---------------------------------------------------------------------------
@@ -1033,18 +1129,28 @@ NO_KERNEL = ("empty", "view", "reshape", "expand", "select", "slice",
 def step_ops(dev, cfg, gp) -> tuple:
     """The operators of one eager grouped step (the plan's first group, on
     a fresh cache of ``cfg``): (every operator, in order; those whose
-    result has a whole column's rows or more, as (operator, shape)).  The
-    hand-written kernels are called through ctypes, not as operators, so
-    they are not among them; allocations (``empty``) move no bytes and
+    result has a whole column's rows or more, as (operator, shape); the
+    calls the step made to ``core.prng``'s ``fold_in`` and ``uniform``).
+    The hand-written kernels are called through ctypes, not as operators,
+    so they are not among them; allocations (``empty``) move no bytes and
     are left out of the second list."""
+    from unittest import mock
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
-    from repro_torch.core import make
+    from repro_torch.core import make, prng
     from repro_torch.core.cache import access_group_
 
     n = cfg.n_slots
-    called, whole = [], []
+    called, whole, drawn = [], [], []
+
+    def counted(name):
+        fn = getattr(prng, name)
+
+        def call(*a, **kw):
+            drawn.append(name)
+            return fn(*a, **kw)
+        return mock.patch.object(prng, name, call)
 
     class Watch(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1065,37 +1171,50 @@ def step_ops(dev, cfg, gp) -> tuple:
                                  g["keys"], is_write=g["is_write"],
                                  obj_size=g["sizes"])
     step()                                     # builds and counters first
-    with Watch():
+    with counted("fold_in"), counted("uniform"), Watch():
         step()
-    return called, whole
+    return called, whole, drawn
 
 
-def check_step_traffic(dev, cfg, gp) -> dict:
+def check_step_traffic(dev, cfg, gp, strict: bool = True) -> dict:
     """Phase 3's step check: the fused step returns no whole column but the
     two of the ``bytes_cached`` reduction (``size == 255`` and the masked
     sizes), so it moves no column through a clone, copy, concatenation or
-    fill; the reference step's whole-column operators are listed.  Both
-    steps' operators are counted: all of them, and those that may launch
-    device work (no allocation or view)."""
+    fill, and it calls no ``core.prng`` function (the eviction kernel
+    draws each request's offset and expert choice); the reference step's
+    whole-column operators are listed.  Both steps' operators are
+    counted: all of them, those that may launch device work (no
+    allocation or view), and the bitwise ops and shifts among them.  Not
+    ``strict`` (``--step-only``, which also runs an older checkout's
+    step), the prng calls are counted, not refused."""
     import dataclasses
     out = {}
     for backend in ("fused", "reference"):
-        called, whole = step_ops(dev, dataclasses.replace(cfg, backend=backend),
-                                 gp)
+        called, whole, drawn = step_ops(
+            dev, dataclasses.replace(cfg, backend=backend), gp)
         work = [o for o in called if not any(k in o for k in NO_KERNEL)]
+        bitwise = [o for o in called if "bitwise" in o or "shift" in o]
         out[backend] = dict(operators=len(called), device_ops=len(work),
+                            bitwise_ops=len(bitwise), prng_calls=len(drawn),
                             whole_column=whole)
         log(f"one eager {backend} step: {len(called)} operators, "
-            f"{len(work)} of them neither an allocation nor a view; "
-            f"{len(whole)} return a whole column ({cfg.n_slots} rows): "
+            f"{len(work)} of them neither an allocation nor a view, "
+            f"{len(bitwise)} bitwise ops and shifts; {len(drawn)} calls to "
+            f"core.prng; {len(whole)} return a whole column ({cfg.n_slots} "
+            f"rows): "
             + (", ".join(f"{o} {list(sh)}" for o, sh in whole) or "none"))
     fused = [o for o, _ in out["fused"]["whole_column"]]
     if (len(fused) != 2 or not fused[0].startswith("aten.eq")
             or not fused[1].startswith("aten.where")):
         raise AssertionError(f"the fused step moves whole columns: "
                              f"{out['fused']['whole_column']}")
+    if strict and out["fused"]["prng_calls"]:
+        raise AssertionError("the fused step called core.prng "
+                             f"{out['fused']['prng_calls']} times: its draw "
+                             "belongs in the eviction kernel")
     log("the fused step: no whole-column clone, copy, concatenation or fill; "
-        "only the bytes_cached reduction reads the size column whole")
+        "only the bytes_cached reduction reads the size column whole"
+        + ("; no core.prng call" if strict else ""))
     return out
 
 
@@ -1679,17 +1798,19 @@ def replay_page_cache(dev, pc, lookups, launches) -> dict:
 
     checked = {k: 0 for k in CACHE_KERNELS}
     patches = []
-    for name, plain, compare in (
-            ("access_probe", ref.access_probe_ref, compare_ints),
-            ("ranked_eviction", ref.ranked_eviction_ref, compare_ints)):
-        def held(*args, _name=name, _op=getattr(ops, name + "_op"),
-                 _plain=plain, _compare=compare, **kw):
+    for name, op, plain, compare in (
+            ("access_probe", "access_probe_op", ref.access_probe_ref,
+             compare_ints),
+            ("ranked_eviction", "ranked_eviction_draw_op",
+             ref.ranked_eviction_draw_ref, compare_ints)):
+        def held(*args, _name=name, _op=getattr(ops, op), _plain=plain,
+                 _compare=compare, **kw):
             got = _op(*args, **kw)
             _compare(f"page cache {_name} launch {checked[_name]}", got,
                      _plain(*args, **kw))
             checked[_name] += 1
             return got
-        patches.append(mock.patch.object(ops, name + "_op", held))
+        patches.append(mock.patch.object(ops, op, held))
 
     # The in-place two: the plain version runs on copies of the columns
     # the kernel is about to write, and the two results must be equal.
@@ -1799,7 +1920,8 @@ def main() -> int:
         from repro_torch.core import CacheConfig
         k2, w2, T, gp, _ = plan_trace(a.requests, 0)
         check_step_traffic(dev, CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC,
-                                            capacity=CAPACITY), gp)
+                                            capacity=CAPACITY), gp,
+                           strict=False)
         if a.profile:
             profile_steps(dev, card, gp, k2[:T], a.profile, None)
         return 0
@@ -1838,7 +1960,8 @@ def main() -> int:
         "drop_scatter": "src/repro/core/cache.py:636"}
     extra = ("eager_ms", "copy_ms", "copy_bound_ms", "wrapper_ms",
              "ms_alone", "bound_ms_alone", "ms_insert_group",
-             "bound_ms_insert_group",
+             "bound_ms_insert_group", "ms_given", "plain_ms_given",
+             "bound_ms_given",
              "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
              "row_err_32k", "controls", "layer_row_err", "ms_pairs",
              "ms_one_slot", "launches_gemma_2b", "layer_row_err_gemma_2b",

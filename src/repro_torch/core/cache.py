@@ -8,7 +8,8 @@ frequency-counter (FC) cache flush, regret collection and the expert
 weights, read-through inserts, the sampled ranked eviction, then the
 apply and the ``OpStats`` metering.  Round r runs at logical time
 ``clock + r``.  ``backend="fused"`` routes the probe, the metadata
-update, the eviction decision and the apply's writes through
+update, the eviction decision (with each request's threefry draw of its
+sample offset and expert choice) and the apply's writes through
 ``kernels/ops.py`` (the CUDA kernels on the card);
 ``backend="reference"`` computes them in plain torch.  Both make the
 same decisions.
@@ -162,10 +163,14 @@ def _lww_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(_run_edges(idx, last=True), idx, n)
 
 
-def _choose_expert(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Sample an expert index ~ normalized weights."""
+def _expert_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The cumulative distribution [..., E] of the normalized weights."""
     p = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-30)
-    cdf = torch.cumsum(p, dim=-1)
+    return torch.cumsum(p, dim=-1)
+
+
+def _choose_expert(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Sample an expert index ~ the distribution ``cdf`` [..., E]."""
     return (cdf < u[..., None]).sum(dim=-1)
 
 
@@ -253,9 +258,6 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     clock = state.clock
     ts_round = (clock + torch.arange(G, device=dev)) & M32        # [G]
     ts_req = ts_round[:, None].expand(G, C).contiguous().reshape(B)  # [B]
-    rng_b = clients.rng.repeat(G, 1)                               # [B, 2]
-    step_rng = prng.fold_in(rng_b, ts_req)
-    lane_b = torch.arange(C, device=dev).repeat(G)                 # [B]
 
     # 1. Bucket probe (+ the embedded-history match).  The fused probe
     #    also returns what the insert path (4) needs of the same bucket.
@@ -332,10 +334,6 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     pen_lane = _seqsum(pen_e.reshape(G, C, E))[:, None, :]   # [C, 1, E]
     reg_lane = regret.reshape(G, C).sum(dim=0)[:, None]      # [C, 1]
 
-    # One threefry draw per request: expert choice and sampling offset.
-    u2 = prng.uniform(step_rng, 2)
-    u_exp = u2[:, 0]
-
     lam = cfg.learning_rate
     local_w = clients.local_weights[:, None] * torch.exp(-lam * pen_lane)
     pacc = clients.penalty_acc[:, None] + pen_lane
@@ -351,7 +349,15 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     pacc = torch.where(syncing[..., None], 0.0, pacc)
     pcnt = torch.where(syncing, 0, pcnt)
     n_sync = syncing.sum()
-    e_choice = _choose_expert(local_w[lane_b, 0], u_exp)      # [B]
+    # Each lane's expert distribution; one threefry draw per request gives
+    # its expert choice and sampling offset: in the fused backend the
+    # eviction kernel draws both (5).
+    cdf = _expert_cdf(local_w[:, 0])                          # [C, E]
+    if not fused:
+        rng_b = clients.rng.repeat(G, 1)                      # [B, 2]
+        u2 = prng.uniform(prng.fold_in(rng_b, ts_req), 2)     # [B, 2]
+        lane_b = torch.arange(C, device=dev).repeat(G)        # [B]
+        e_choice = _choose_expert(cdf[lane_b], u2[:, 0])      # [B]
 
     # 4. Inserts: read-through on miss, one per bucket per step.
     want_insert = miss & (is_write | insert_on_miss)
@@ -362,7 +368,6 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         free_slot, has_free = facts.free_slot, facts.has_free
         fb_hist_slot, has_valid_hist = facts.hist_slot, facts.has_hist
         has_live = facts.has_live
-        fb_obj_slot = _pick(facts.cand, e_choice)
     else:
         free = (b_size == SIZE_EMPTY) | (is_hist & ~h_valid)  # [B, A]
         has_free = free.any(dim=1)
@@ -381,9 +386,6 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     fallback_obj = winner & ~has_free & ~has_valid_hist & has_live
     plain = winner & has_free
     ins_ok = plain | fallback_hist | fallback_obj
-    ins_slot = torch.where(plain, free_slot,
-                           torch.where(fallback_hist, fb_hist_slot,
-                                       fb_obj_slot))
     dropped = dropped | (winner & ~ins_ok)
 
     # 5. Global sampled eviction against the byte budget.
@@ -401,13 +403,17 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     must_evict = chargers & (over > 0)
 
     W = cfg.sample_window or 4 * K
-    offs = torch.clamp((u2[:, 1] * n_slots).to(I64), max=n_slots - 1)
     if fused:
-        victims_2d, cand_slot = kops.ranked_eviction_op(
-            state.size, state.insert_ts, state.last_ts, state.freq, offs,
-            e_choice, must_evict, quota, ts_req, window=W, k=K,
-            experts=names)                                    # [B, K], [B, E]
+        # The kernel draws each op's offset and expert choice; it returns
+        # the victims' expert bitmaps too.
+        victims_2d, cand_slot, e_choice, bmap_2d = (
+            kops.ranked_eviction_draw_op(
+                state.size, state.insert_ts, state.last_ts, state.freq,
+                clients.rng, cdf, must_evict, quota, ts_req, window=W, k=K,
+                experts=names))                               # [B, K], [B, E]
+        fb_obj_slot = _pick(facts.cand, e_choice)
     else:
+        offs = torch.clamp((u2[:, 1] * n_slots).to(I64), max=n_slots - 1)
         samp = (offs[:, None]
                 + torch.arange(W, device=dev)[None, :]) % n_slots  # [B, W]
         s_md = _md_view(state, samp, ts_req[:, None])
@@ -436,13 +442,19 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     ev_winner = _first_winner(victims, victims >= 0)
     n_evict = ev_winner.sum()
     evicting = must_evict & (victims_2d >= 0).any(dim=1)
+    ins_slot = torch.where(plain, free_slot,
+                           torch.where(fallback_hist, fb_hist_slot,
+                                       fb_obj_slot))
 
     # Expert bitmap per victim: matching candidates + the chosen expert.
-    cand_rep = _repeat(cand_slot, V)                          # [B*V, E]
-    e_rep = _repeat(e_choice, V)                              # [B*V]
-    bmap = ((cand_rep == victims[:, None]).to(I64)
-            << torch.arange(E, device=dev)[None, :]).sum(dim=1)
-    bmap = bmap | (1 << e_rep)
+    if fused:
+        bmap = bmap_2d.reshape(-1)                            # [B*V]
+    else:
+        cand_rep = _repeat(cand_slot, V)                      # [B*V, E]
+        e_rep = _repeat(e_choice, V)                          # [B*V]
+        bmap = ((cand_rep == victims[:, None]).to(I64)
+                << torch.arange(E, device=dev)[None, :]).sum(dim=1)
+        bmap = bmap | (1 << e_rep)
 
     # GreedyDual inflation: L <- max(L, evicted victim's H).
     gds_L = state.gds_L

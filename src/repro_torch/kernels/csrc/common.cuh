@@ -1,6 +1,8 @@
 // Device code shared by the cache kernels: the key hash, the expert
-// priorities and the tile and warp argmins.  Header-only; every function
-// is inline and internal to the translation unit that includes it.
+// priorities, the tile and warp argmins, and what the two eviction
+// kernels share: the threefry draw, the one-round-trip sample gather and
+// the interleaved argmins.  Header-only; every function is inline and
+// internal to the translation unit that includes it.
 
 #pragma once
 
@@ -50,6 +52,126 @@ __device__ __forceinline__ void tile_argmin(float& v, int& i, int width) {
 // tile_argmin over the whole warp.
 __device__ __forceinline__ void warp_argmin(float& v, int& i) {
   tile_argmin(v, i, 32);
+}
+
+// tile_argmin of NE (value, index) pairs at once: each level's 2 * NE
+// shuffles are independent, so they overlap instead of running as NE
+// chained reductions.
+template <int NE>
+__device__ __forceinline__ void tile_argmin_n(float (&v)[NE], int (&i)[NE],
+                                              int width) {
+  for (int d = width >> 1; d > 0; d >>= 1) {
+    float ov[NE];
+    int oi[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      ov[e] = __shfl_xor_sync(FULL, v[e], d);
+      oi[e] = __shfl_xor_sync(FULL, i[e], d);
+    }
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      if (ov[e] < v[e] || (ov[e] == v[e] && oi[e] < i[e])) {
+        v[e] = ov[e];
+        i[e] = oi[e];
+      }
+    }
+  }
+}
+
+// The eviction kernels take at most this many experts; their codes come
+// by value, four bits each in one 64-bit kernel argument.
+constexpr int MAX_EXPERTS = 8;
+
+__device__ __forceinline__ int expert_code(int64_t codes, int e) {
+  return (int)((codes >> (4 * e)) & 0xF);
+}
+
+// A sampled slot's metadata as f32, in the order of priority()'s
+// arguments.
+struct Md {
+  float sz, ins, last, fr;
+};
+
+__device__ __forceinline__ float priority(int code, const Md& m,
+                                          float clock) {
+  return priority(code, m.sz, m.ins, m.last, m.fr, clock);
+}
+
+// Adds one 32-slot chunk of a window to a sample of its first K
+// eligible slots, in window order: this lane's slot (window position j,
+// metadata m) is sample cnt + its rank among the chunk's eligible lanes,
+// stored if below K as pos[r] and md[f * ld + r] for field f of Md (in
+// shared memory for K <= 32, a scratch row in device memory for wider
+// samples).  Returns cnt plus the chunk's eligible count.  Every lane of
+// the warp takes part; the caller __syncwarp()s before reading.
+__device__ __forceinline__ int sample_chunk(bool elig, int j, const Md& m,
+                                            int cnt, int K, int* pos,
+                                            float* md, int ld) {
+  const int lane = threadIdx.x & 31;
+  const unsigned mask = __ballot_sync(FULL, elig);
+  const int r = cnt + __popc(mask & ((1u << lane) - 1u));
+  if (elig && r < K) {
+    pos[r] = j;
+    md[r] = m.sz;
+    md[ld + r] = m.ins;
+    md[2 * ld + r] = m.last;
+    md[3 * ld + r] = m.fr;
+  }
+  return cnt + __popc(mask);
+}
+
+// Four threefry rounds with rotations R0..R3.
+template <int R0, int R1, int R2, int R3>
+__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, R0) ^ x0;
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, R1) ^ x0;
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, R2) ^ x0;
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, R3) ^ x0;
+}
+
+// Threefry-2x32, 20 rounds, on the counter pair (x0, x1) under the key
+// (k0, k1), as repro_torch/core/prng.py::threefry2x32 computes it: the
+// rotations (13, 15, 26, 6) and (17, 29, 16, 24) in turn, the parity
+// 0x1BD11BDA, and after each four rounds the key injection with + (i+1).
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k1;
+  x1 += k2 + 1u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k2;
+  x1 += k0 + 2u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k0;
+  x1 += k1 + 3u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k1;
+  x1 += k2 + 4u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k2;
+  x1 += k0 + 5u;
+}
+
+// One request's draw: prng.fold_in(key, d), then prng.uniform(., 2):
+// u[i] from the bits y0 ^ y1 of threefry(step key, (0, i)), their 23 high
+// bits OR'd into 1.0f, minus 1 (exact).
+__device__ __forceinline__ void draw_uniform2(uint32_t k0, uint32_t k1,
+                                              uint32_t d, float& u0,
+                                              float& u1) {
+  uint32_t s0 = 0u, s1 = d;
+  threefry2x32(k0, k1, s0, s1);
+  uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
+  threefry2x32(s0, s1, a0, a1);
+  threefry2x32(s0, s1, b0, b1);
+  u0 = __fsub_rn(__uint_as_float(((a0 ^ a1) >> 9) | 0x3F800000u), 1.0f);
+  u1 = __fsub_rn(__uint_as_float(((b0 ^ b1) >> 9) | 0x3F800000u), 1.0f);
 }
 
 }  // namespace

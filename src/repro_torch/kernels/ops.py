@@ -1,6 +1,7 @@
 """The op wrappers of the hand-written kernels: the four cache kernels
 of ``core.access`` (the probe with the insert path's bucket facts, the
-in-place hit-metadata update, the ranked eviction and the apply's
+in-place hit-metadata update, the ranked eviction, which also draws each
+request's sample offset and expert choice, and the apply's
 ``drop_scatter``, one launch for all its write groups), the flash-attention
 kernel of the LM prefill, and the three cache kernels that only this
 entry point reaches (``sampled_eviction_op``, ``bucket_lookup_op``,
@@ -32,13 +33,15 @@ from repro_torch.kernels.metadata_update import (hit_metadata_update_,
                                                  metadata_update)
 from repro_torch.kernels.runtime import launch_counts as launches
 from repro_torch.kernels.runtime import reset_counts as reset_launches
-from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS,
+from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS, MAX_EXPERTS,
                                                   ranked_eviction,
+                                                  ranked_eviction_draw,
                                                   sampled_eviction)
 from repro_torch.kernels.scatter import MAX_COLS, MAX_GROUPS, drop_scatter
 
 __all__ = ["access_probe_op", "hit_metadata_update_op",
-           "hit_metadata_update_op_", "ranked_eviction_op", "drop_scatter_op_",
+           "hit_metadata_update_op_", "ranked_eviction_op",
+           "ranked_eviction_draw_op", "drop_scatter_op_",
            "drop_scatter_groups_op_", "flash_attention_op",
            "sampled_eviction_op", "bucket_lookup_op", "metadata_update_op",
            "KERNEL_EXPERTS", "launches", "reset_launches"]
@@ -79,6 +82,23 @@ def _experts(op: str, experts) -> tuple:
     if bad:
         raise ValueError(f"{op} supports {KERNEL_EXPERTS}; got {bad}")
     return experts
+
+
+def _eviction_experts(op: str, experts) -> tuple:
+    """The eviction kernels' experts: 1 to MAX_EXPERTS of them, their
+    codes passed by value."""
+    experts = _experts(op, experts)
+    if not 0 < len(experts) <= MAX_EXPERTS:
+        raise ValueError(f"{op} takes 1 to {MAX_EXPERTS} experts, got "
+                         f"{len(experts)}")
+    return experts
+
+
+def _window(op: str, window: int, k: int, n: int) -> None:
+    if not 0 < window <= n:
+        raise ValueError(f"{op}: window={window} for {n} slots")
+    if not 0 < k <= window:
+        raise ValueError(f"{op}: k={k} must be in [1, window={window}]")
 
 
 def _dispatch(op: str, device, kernel, plain, *args, **kw):
@@ -238,12 +258,8 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     per-expert candidates i64[B, E]."""
     dev = offsets.device
     n, B = size.shape[0], offsets.shape[0]
-    experts = _experts("ranked_eviction", experts)
-    if not 0 < window <= n:
-        raise ValueError(f"ranked_eviction: window={window} for {n} slots")
-    if not 0 < k <= window:
-        raise ValueError(f"ranked_eviction: k={k} must be in [1, window="
-                         f"{window}]")
+    experts = _eviction_experts("ranked_eviction", experts)
+    _window("ranked_eviction", window, k, n)
     cols = dict(size=(size, I64, (n,)), insert_ts=(insert_ts, I64, (n,)),
                 last_ts=(last_ts, I64, (n,)), freq=(freq, I64, (n,)),
                 offsets=(offsets, I64, (B,)), e_choice=(e_choice, I64, (B,)),
@@ -262,6 +278,38 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
                      experts=experts, tenant=tenant, tfilt=tfilt)
 
 
+def ranked_eviction_draw_op(size, insert_ts, last_ts, freq, rng, cdf,
+                            must_evict, quota, ts, *, window: int, k: int,
+                            experts):
+    """:func:`ranked_eviction_op` that draws each op's window offset and
+    expert choice itself, as the cache step does: op b's key is
+    ``rng[b % lanes]`` (``ClientState.rng``, [lanes, 2] u32), folded with
+    its timestamp ``ts[b]`` into two uniforms; the offset is the second
+    scaled to the table, the choice the number of the lane's ``cdf``
+    entries ([lanes, E] f32) below the first (E takes no victim).
+    Returns victims i64[B, k], cand i64[B, E], e_choice i64[B] and each
+    victim entry's expert bitmap i64[B, k] (the candidates it equals, and
+    the chosen expert).  One launch, counted as ``ranked_eviction``."""
+    dev = ts.device
+    n, B = size.shape[0], ts.shape[0]
+    experts = _eviction_experts("ranked_eviction", experts)
+    _window("ranked_eviction", window, k, n)
+    lanes = rng.shape[0] if rng.dim() else 0
+    if lanes == 0:
+        raise ValueError("ranked_eviction: rng needs at least one lane")
+    _check("ranked_eviction", dev, size=(size, I64, (n,)),
+           insert_ts=(insert_ts, I64, (n,)), last_ts=(last_ts, I64, (n,)),
+           freq=(freq, I64, (n,)), rng=(rng, I64, (lanes, 2)),
+           cdf=(cdf, F32, (lanes, len(experts))),
+           must_evict=(must_evict, BOOL, (B,)),
+           quota=(quota, I64, (B,) if quota.dim() else ()),
+           ts=(ts, I64, (B,)))
+    args = (size, insert_ts, last_ts, freq, rng, cdf, must_evict, quota, ts)
+    return _dispatch("ranked_eviction", dev, ranked_eviction_draw,
+                     ref.ranked_eviction_draw_ref, *args, window=window, k=k,
+                     experts=experts)
+
+
 def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
                         clock, *, window: int = 20, k: int = 5,
                         experts=("lru", "lfu")):
@@ -275,7 +323,7 @@ def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     B: the JAX op's ``block_b`` tiling, and its B % 8 == 0, are gone."""
     dev = offsets.device
     n, B = size.shape[0], offsets.shape[0]
-    experts = _experts("sampled_eviction", experts)
+    experts = _eviction_experts("sampled_eviction", experts)
     if not 0 < window <= n:
         raise ValueError(f"sampled_eviction: window={window} for {n} "
                          "padded slots")

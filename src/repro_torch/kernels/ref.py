@@ -8,7 +8,9 @@ table columns; their windows index them mod C instead of reading a
 wrap-padded copy, and their returned slots are taken mod C.  The three
 kernels of the ``kernels.ops`` entry point alone (``sampled_eviction``,
 ``bucket_lookup``, ``metadata_update``) keep the JAX ops' forms: f32
-columns, windows over a tail-padded copy, slots not taken mod C.  The op
+columns, windows over a tail-padded copy, slots not taken mod C.  The
+ranked eviction's draw form takes the cache step's threefry draw in with
+it (``ranked_eviction_draw_ref``), as its kernel does.  The op
 wrappers in ``kernels/ops.py`` run these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 """
@@ -19,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.hashing import bucket_of, hash_key
 from repro_torch.core.priority import LRFU_LAMBDA, LRUK_K, exp2
 from repro_torch.core.u32 import M32
@@ -329,6 +332,40 @@ def ranked_eviction_ref(size, insert_ts, last_ts, freq, offsets, e_choice,
             & must_evict[:, None])
     victims = torch.where(take, ranked_idx, -1)[:, :k]
     return victims, cand
+
+
+def eviction_draw_ref(rng, cdf, ts, n_slots: int):
+    """The cache step's draw for op b: the key ``rng[b % lanes]`` ([lanes,
+    2] u32), folded with the op's timestamp ``ts[b]``, gives two uniforms
+    (``prng.fold_in``, ``prng.uniform``); the window offset is
+    ``min(trunc(u1 * n_slots), n_slots - 1)`` in f32, and the expert
+    choice the number of the lane's ``cdf`` entries ([lanes, E] f32) below
+    u0 (E where all are).  Returns (offsets i64[B], e_choice i64[B])."""
+    lane = torch.arange(ts.shape[0], device=ts.device) % rng.shape[0]
+    u2 = prng.uniform(prng.fold_in(rng[lane], ts), 2)
+    offsets = torch.clamp((u2[:, 1] * n_slots).to(torch.int64),
+                          max=n_slots - 1)
+    return offsets, (cdf[lane] < u2[:, :1]).sum(dim=-1)
+
+
+def ranked_eviction_draw_ref(size, insert_ts, last_ts, freq, rng, cdf,
+                             must_evict, quota, ts, *, window: int, k: int,
+                             experts):
+    """:func:`ranked_eviction_ref` at the offsets and expert choices of
+    :func:`eviction_draw_ref`, with each victim entry's expert bitmap:
+    ``sum_e (cand[b, e] == victims[b, j]) << e | 1 << e_choice[b]``, -1
+    entries included (the JAX package's ``cache.py:604-610``).
+
+    Returns victims i64[B, k], cand i64[B, E], e_choice i64[B] and bmap
+    i64[B, k]."""
+    offsets, e_choice = eviction_draw_ref(rng, cdf, ts, size.shape[0])
+    victims, cand = ranked_eviction_ref(
+        size, insert_ts, last_ts, freq, offsets, e_choice, must_evict, quota,
+        ts, window=window, k=k, experts=experts)
+    shift = torch.arange(len(experts), device=ts.device)
+    bmap = (((cand[:, None, :] == victims[:, :, None]).to(torch.int64)
+             << shift).sum(dim=-1) | (1 << e_choice)[:, None])
+    return victims, cand, e_choice, bmap
 
 
 def gqa_heads(x: torch.Tensor) -> torch.Tensor:

@@ -47,12 +47,14 @@ SIGNATURES = {
     "access_probe_launch": [P, P, P, P, P, P, I, I, L, L, P, P, P, P, P, P,
                             P, P, P, I, P, P, P, P, P, P, P, P, P, P],
     "hit_metadata_update_launch": [P, P, P, P, P, I, P, P, I, P, P, P, P, P],
-    "ranked_eviction_launch": [P, P, P, P, P, L, P, P, P, P, I, P, P, P, I, I,
+    "ranked_eviction_launch": [P, P, P, P, P, L, P, P, P, P, I, P, P, L, I, I,
                                I, I, P, P, P, P, P, P],
+    "ranked_eviction_draw_launch": [P, P, P, P, L, P, I, P, P, P, I, P, L, I,
+                                    I, I, I, P, P, P, P, P, P, P, P],
     "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L,
                                L, L, L, L, L, P, P],
-    "sampled_eviction_launch": [P, P, P, P, L, P, P, P, F, P, I, I, I, I, P, P,
-                                P, P, P],
+    "sampled_eviction_launch": [P, P, P, P, L, P, P, P, F, L, I, I, I, I, P, P,
+                                P, P, P, P],
     "bucket_lookup_launch": [P, P, P, I, I, L, P, P, P, P],
     "metadata_update_launch": [P, P, I, L, P, P, P, F, P, P, P, P, P, P],
     "drop_scatter_launch": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,

@@ -326,6 +326,56 @@ def test_wide_samples_match_plain_versions_on_the_card(cuda, K, B):
     assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 2, 5])
+@pytest.mark.parametrize("B", [1, 63, 2048])
+@pytest.mark.parametrize("K", [5, 33, 64])
+def test_eviction_kernels_match_plain_versions_at_every_expert_count(
+        cuda, K, B, E):
+    """The ranked eviction's draw form (the fused step's: the threefry
+    draw, the expert choice and the victims' bitmaps in the kernel), its
+    given form and sampled_eviction, each bit-equal to its plain version
+    at E = 1, 2 and 5 experts: lanes whose weights sum below 1e-30 have a
+    cdf below every draw, so their choice is E and takes no victim."""
+    rng = np.random.default_rng(1000 * K + B + E)
+    n, W, lanes = 4000, max(20, 2 * K), 64          # n: not a power of two
+    experts = EXPERTS[-E:] if E < 5 else EXPERTS
+    size = _t(rng.choice([0, 1, 2, 3, 8, 255], n), cuda)
+    last = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    freq = _t(rng.integers(0, 5, n), cuda)               # priority ties
+    ins = _t(rng.integers(0, 999, n), cuda)
+    w = torch.from_numpy(rng.random((lanes, E)).astype(np.float32) + 1e-4)
+    w[::7] = 1e-32
+    cdf = t_cache._expert_cdf(w).to(cuda)
+    keys = _t(rng.integers(0, 2**32, (lanes, 2), dtype=np.uint64), cuda)
+    ts = _t(np.repeat(2**32 - 16 + np.arange(-(-B // lanes)),
+                      lanes)[:B] % 2**32, cuda)          # wraps past 2^32
+    must = torch.rand(B, device=cuda) < 0.8
+    for quota in (_t(rng.integers(0, 4 * K, B), cuda), torch.tensor(
+            K, device=cuda)):
+        args = (size, ins, last, freq, keys, cdf, must, quota, ts)
+        kw = dict(window=W, k=K, experts=experts)
+        g = ops.ranked_eviction_draw_op(*args, **kw)
+        want = ref.ranked_eviction_draw_ref(*args, **kw)
+        for x, y in zip(g, want):
+            assert torch.equal(x, y)
+        assert B < 63 or (bool((g[2] == E).any())
+                          and int((g[0] >= 0).sum()) > 0)
+        offs, ech = ref.eviction_draw_ref(keys, cdf, ts, n)
+        rargs = (size, ins, last, freq, offs, ech, must, quota, ts)
+        g = ops.ranked_eviction_op(*rargs, **kw)
+        want = ref.ranked_eviction_ref(*rargs, **kw)
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+    pad = lambda x: torch.cat([x.float(), x.new_zeros(W).float()])
+    offs = np.append(rng.integers(0, n, B - 1), n)        # last: the tail
+    sargs = (pad(size), pad(ins), pad(last), pad(freq), _t(offs, cuda),
+             _t(rng.integers(0, E + 1, B), cuda))         # E: no expert
+    for clock in (1000.0, torch.tensor(1003.0, device=cuda)):
+        g = ops.sampled_eviction_op(*sargs, clock, **kw)
+        want = ref.sampled_eviction_ref(*sargs, clock, **kw)
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+
+
 def _ycsb(workload, n, n_keys, seed):
     keys, wr = gen.ycsb(workload, n, n_keys=n_keys, seed=seed)
     return keys, C, wr

@@ -12,7 +12,10 @@ entry point's three on ``tests/test_kernels.py``'s own shapes, experts
 and seeds; samples of K = 33 and 64, wider than a warp.  The probe's
 facts form is held against the JAX package's own step code
 (``repro/core/cache.py:396-413``), and the apply's multi-group
-``drop_scatter`` against XLA's drop-mode scatters group by group.  Integer outputs are bit-equal; the f32 ``ext`` column is
+``drop_scatter`` against XLA's drop-mode scatters group by group.  The
+ranked eviction's draw form (the fused step's) is held against the JAX
+step's own threefry draw, expert choice, Pallas ``ranked_eviction`` and
+victim bitmap.  Integer outputs are bit-equal; the f32 ``ext`` column is
 held to ``assert_array_max_ulp(maxulp=4)`` (XLA and PyTorch round
 ``exp`` apart); ``metadata_update``'s ``freq`` is bit-equal on integer
 deltas and within ``rtol=1e-6`` on non-integer ones (the Pallas kernel
@@ -39,7 +42,7 @@ from repro.core.hashing import bucket_of as j_bucket_of
 from repro.core.hashing import hash_key as j_hash_key
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, runtime
+from repro_torch.kernels import ops, ref, runtime
 from repro_torch.kernels.sampled_eviction import KERNEL_EXPERTS
 
 EXPERTS = ("lru", "lfu", "fifo", "size", "hyperbolic")
@@ -359,6 +362,87 @@ def test_ranked_eviction_scalar_quota_and_no_live_sample():
                                   experts=("lru",))
     assert v.tolist() == [[-1, -1], [4, -1]]   # op 1's window is slots 4, 5
     assert c.tolist() == [[0], [4]]            # no live sample: offset
+
+
+def _jax_draw_and_eviction(size, ins, last, freq, keys, weights, must, quota,
+                           ts, G, W, K, experts):
+    """The cache step's draw, expert choice, Pallas eviction and bitmap as
+    the JAX package's step computes them (``repro/core/cache.py:197-199``,
+    ``:358``, ``:382``, ``:497-504``, ``:604-610``) on these inputs: keys
+    u32[lanes, 2] tiled over G rounds, per-lane weights [lanes, E].  An
+    expert choice of E takes no victim, as the reference backend's NaN
+    gather decides (the Pallas kernel would rank by expert 0; ROADMAP
+    Queue 3)."""
+    import jax
+    lanes, E = keys.shape[0], len(experts)
+    C = size.shape[0]
+    rng_b = jnp.tile(jnp.asarray(keys, jnp.uint32), (G, 1))
+    step_rng = jax.vmap(jax.random.fold_in)(rng_b, jnp.asarray(ts, jnp.uint32))
+    u2 = jax.vmap(lambda r: jax.random.uniform(r, (2,)))(step_rng)
+    lane_b = jnp.tile(jnp.arange(lanes, dtype=jnp.int32), G)
+    e_choice = j_cache._choose_expert(jnp.asarray(weights)[lane_b], u2[:, 0])
+    offs = jnp.minimum((u2[:, 1] * C).astype(jnp.int32), C - 1)
+    wrap = lambda x: jnp.asarray(np.concatenate([x, x[:W]]).astype(np.float32))
+    victims, cand = jops.ranked_eviction_op(
+        wrap(size), wrap(ins), wrap(last), wrap(freq), offs, e_choice,
+        jnp.asarray(must), jnp.asarray(quota), jnp.asarray(ts), window=W,
+        k=K, experts=experts)
+    victims = jnp.where((e_choice < E)[:, None], victims, -1)
+    flat = victims.reshape(-1)
+    cand_rep = jnp.repeat(cand, K, axis=0)
+    e_rep = jnp.repeat(e_choice, K)
+    bmap = jnp.sum(((cand_rep == flat[:, None]).astype(jnp.uint32)
+                    << jnp.arange(E, dtype=jnp.uint32)[None, :]), axis=1)
+    bmap = bmap | (jnp.uint32(1) << e_rep.astype(jnp.uint32))
+    return tuple(np.asarray(x).astype(np.int64) for x in (
+        victims, cand, e_choice, bmap.reshape(-1, K), offs))
+
+
+@pytest.mark.parametrize("seed,C,lanes,G,W,K,experts,per_op,starved", [
+    (0, 6 * 37, 4, 3, 20, 5, ("lru", "lfu"), True, False),
+    (1, 6 * 40, 5, 2, 66, 33, EXPERTS, False, True),
+    (2, 256, 3, 4, 128, 64, ("hyperbolic",), True, True),
+    (3, 6 * 23, 8, 2, 20, 5, EXPERTS, False, False),
+    (4, 300, 4, 2, 64, 64, ("lru", "lfu"), True, True),
+    (5, 6 * 11, 2, 5, 40, 33, ("size",), False, False)])
+def test_ranked_eviction_draw_matches_the_jax_step(seed, C, lanes, G, W, K,
+                                                   experts, per_op, starved):
+    """The draw form's plain version (what the fused step runs on the CPU)
+    against the JAX step's threefry draw, expert choice, Pallas
+    ranked_eviction and victim bitmap, bit for bit: K = 5, 33, 64; E = 1,
+    2, 5; tables of 6·m slots (assoc 6, not a power of two); a scalar or
+    per-op quota; ``starved``: lane 0's weights sum below 1e-30, so its
+    cdf stays below u and the choice is E (no victim)."""
+    from repro_torch.core import cache as t_cache
+    rng = np.random.default_rng(seed)
+    B, E = G * lanes, len(experts)
+    size = rng.choice([0, 1, 2, 3, 8, 255], C).astype(np.uint32)
+    ins = rng.integers(0, 900, C).astype(np.uint32)
+    last = rng.integers(0, 2**32, C, dtype=np.uint64).astype(np.uint32)
+    freq = rng.integers(0, 6, C).astype(np.uint32)        # priority ties
+    keys = rng.integers(0, 2**32, (lanes, 2), dtype=np.uint64).astype(
+        np.uint32)
+    weights = rng.random((lanes, E)).astype(np.float32) + 1e-4
+    if starved:
+        weights[0] = 1e-32
+    ts = np.repeat(1000 + np.arange(G), lanes).astype(np.uint32)
+    ts[-lanes:] = 2**32 - 1 - np.arange(lanes)            # near the u32 top
+    must = rng.random(B) < 0.85
+    quota = (rng.integers(0, 4 * K, B) if per_op
+             else np.asarray(rng.integers(1, 3 * K))).astype(np.int32)
+    want = _jax_draw_and_eviction(size, ins, last, freq, keys, weights, must,
+                                  quota, ts, G, W, K, experts)
+    cdf = t_cache._expert_cdf(torch.from_numpy(weights))
+    args = (_t(size), _t(ins), _t(last), _t(freq), _t(keys), cdf,
+            torch.from_numpy(must), _t(quota), _t(ts))
+    got = ops.ranked_eviction_draw_op(*args, window=W, k=K, experts=experts)
+    offs, _ = ref.eviction_draw_ref(_t(keys), cdf, _t(ts), C)
+    for name, g, w in zip(("victims", "cand", "e_choice", "bmap", "offsets"),
+                          got + (offs,), want):
+        assert np.array_equal(g.numpy(), w), name
+    assert int((got[0] >= 0).sum()) > 0
+    assert bool((got[2] == E).any()) == starved
+    assert bool((got[2][got[2] < E] >= 0).all())
 
 
 # ---------------------------------------------------------------------------
@@ -739,6 +823,9 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     ops.access_probe_op(z, z, z, z, _t([1]), torch.tensor(0), assoc=4,
                         history_len=8, meta=(z, z, z), ts=_t([1]),
                         experts=("lru",))
+    ops.ranked_eviction_draw_op(z, z, z, z, _t([[1, 2]]), torch.ones(1, 1),
+                                torch.tensor([True]), torch.tensor(1),
+                                _t([3]), window=4, k=2, experts=("lru",))
     assert ops.launches() == {"access_probe": 0, "hit_metadata_update": 0,
                               "ranked_eviction": 0, "flash_attention": 0,
                               "sampled_eviction": 0, "bucket_lookup": 0,
@@ -806,6 +893,45 @@ def test_wrappers_check_their_arguments():
                                1.0)
 
 
+def test_ranked_eviction_draw_checks_its_arguments():
+    z, one = _t([1] * 6), torch.tensor([True, False])
+    rng, cdf = _t([[1, 2], [3, 4]]), torch.ones(2, 2)
+    good = (z, z, z, z, rng, cdf, one, torch.tensor(1), _t([7, 8]))
+    kw = dict(window=4, k=2, experts=("lru", "lfu"))
+    v, c, e, bm = ops.ranked_eviction_draw_op(*good, **kw)
+    assert v.shape == bm.shape == (2, 2) and c.shape == (2, 2)
+    assert e.shape == (2,)
+    assert bool(((bm >> e[:, None]) & 1).all())   # the chosen expert's bit
+    for i, bad, exc, match in (
+            (4, _t([1, 2]), ValueError, "rng"),              # not [lanes, 2]
+            (4, _t([[1, 2, 3]]), ValueError, "rng"),
+            (4, _t([[1, 2]]).int(), TypeError, "rng"),
+            (5, torch.ones(2, 3), ValueError, "cdf"),        # E columns
+            (5, torch.ones(3, 2), ValueError, "cdf"),        # a row a lane
+            (5, torch.ones(2, 2).double(), TypeError, "cdf"),
+            (6, _t([1, 0]), TypeError, "must_evict"),
+            (7, _t([1, 2, 3]), ValueError, "quota"),
+            (8, _t([[7], [8]]), ValueError, "ts")):
+        args = good[:i] + (bad,) + good[i + 1:]
+        with pytest.raises(exc, match=match):
+            ops.ranked_eviction_draw_op(*args, **kw)
+    with pytest.raises(ValueError, match="lane"):
+        ops.ranked_eviction_draw_op(*good[:4], _t(np.zeros((0, 2))),
+                                    torch.ones(0, 2), *good[6:], **kw)
+    with pytest.raises(ValueError, match="k="):
+        ops.ranked_eviction_draw_op(*good, window=4, k=5,
+                                    experts=("lru", "lfu"))
+    with pytest.raises(ValueError, match="1 to 8 experts"):
+        ops.ranked_eviction_draw_op(*good[:5], torch.ones(2, 9), *good[6:],
+                                    window=4, k=2, experts=("lru",) * 9)
+    with pytest.raises(ValueError, match="1 to 8 experts"):
+        ops.ranked_eviction_op(z, z, z, z, _t([0]), _t([0]),
+                               torch.tensor([True]), torch.tensor(1), _t([1]),
+                               window=2, k=1, experts=())
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ranked_eviction_draw_op(*(t.to("meta") for t in good), **kw)
+
+
 def test_each_cuda_source_carries_its_note_and_entry_point():
     srcs = {p.stem: p.read_text() for p in runtime.sources()}
     assert set(srcs) == {"access_probe", "hit_metadata_update",
@@ -823,7 +949,12 @@ def test_each_cuda_source_carries_its_note_and_entry_point():
                 else "Replaces the Pallas kernel") in text
         assert "Bound on the H100" in text
         assert "cudaGetLastError()" in text
-    assert set(runtime.SIGNATURES) == {f"{n}_launch" for n in srcs}
+    # ranked_eviction.cu has a second entry point: the form that draws
+    # each op's offset and expert choice itself.
+    assert 'extern "C" int ranked_eviction_draw_launch(' in srcs[
+        "ranked_eviction"]
+    assert set(runtime.SIGNATURES) == ({f"{n}_launch" for n in srcs}
+                                       | {"ranked_eviction_draw_launch"})
     assert "--use_fast_math" not in runtime.FLAGS
     assert re.search(r"compute_90a,code=sm_90a", " ".join(runtime.ARCH))
     assert Path(runtime.BUILD_DIR).name == "_build"
