@@ -50,14 +50,24 @@ Phases, each of which raises (exit code != 0) on any failure:
    wholly in the empty tail) and ``metadata_update`` (f32 freq and last_ts; duplicate, -1
    and past-the-table slots; non-integer deltas) against their plain
    versions at B = 13, 64 and 2048: integers and both f32 columns
-   bit-equal, and two ``metadata_update`` launches the same bits.  The
+   bit-equal, and two ``metadata_update`` launches the same bits.
+   ``bucket_lookup`` at assoc 1, 4, 6, 8, 16 and 64 on tables with a
+   ragged tail (C not a multiple of assoc) at B = 1, 63 and 2048, and
+   ``metadata_update`` in six cases (one slot, every slot twice B / 2
+   apart, distinct slots of one tile, both sides of the tile edges, -1 and
+   past-C no-ops, mixed) at B = 1, 63, 2048 and 65,536, on the table and
+   on one 5 slots shorter, with a NaN in last_ts: into fresh outputs, in
+   place and a second time; bit-equal, one launch a call.  The
    entry point's path, counted: 8 Get batches of 2048 keys, each
    probed with ``bucket_lookup_op``, its hits' freq and last_ts updated
    with ``metadata_update_op`` at the batch's clock, and a victim
    sampled for every op with ``sampled_eviction_op`` from the updated
    columns; the same batches through the plain versions must give the
-   same bits.  Each of the three is timed at B = 2048, and
-   ``metadata_update``'s fresh-column copy on its own.
+   same bits.  Each of the three is timed at B = 2048
+   (``metadata_update`` in place, and its functional form, whose launch
+   also copies the two columns, beside PyTorch's copy of them), and
+   ``metadata_update`` in place on the pairs, one slot and one tile, and
+   at B = 65,536.
 3. End to end, grouped: YCSB-A (50% SET, zipf 0.99) over 10M keys, 64
    client lanes, a 2,097,152-slot cache (capacity 1,048,576 objects),
    planned once at batch 32, through ``execute()`` with the fused and
@@ -171,6 +181,16 @@ CACHE_KERNELS = ("access_probe", "hit_metadata_update", "ranked_eviction",
 # batches of 2048 keys its counted path drives through them.
 ENTRY_KERNELS = ("sampled_eviction", "bucket_lookup", "metadata_update")
 ENTRY_STEPS = 8
+# metadata_update's cases, each at every B of MD_BATCHES: where the slots
+# fall against the kernel's tiles of the table (kernels/metadata_update.py
+# ::TILE slots a CTA).
+MD_CASES = ("one_slot", "pairs", "one_tile", "tile_edges", "no_ops",
+            "mixed")
+MD_BATCHES = (1, 63, 2048, 65_536)
+# bucket_lookup's bucket widths, each on a table whose C is not a multiple
+# of it (assoc 1 aside), at every B of BL_BATCHES.
+BL_ASSOCS = (1, 4, 6, 8, 16, 64)
+BL_BATCHES = (1, 63, 2048)
 # Phase 6: (arch, B, T, H, D, H / Hkv) of the three attention shapes.
 FLASH_SHAPES = (("yi-9b", 1, 4096, 32, 128, 8),
                 ("smollm-135m", 4, 2048, 9, 64, 3),
@@ -733,6 +753,8 @@ def check_entry_point(dev, rng, t, meta, live, probe_keys,
     log("the entry point's three kernels agree with their plain versions at "
         "B = 13, 64 and 2048 (bit-equal; metadata_update the same bits on "
         "two launches)")
+    check_bucket_cases(dev, rng)
+    check_metadata_cases(dev, rng, freq_f, last_f)
 
     # The entry point's path: ENTRY_STEPS Get batches of 2048 keys, each
     # probed, its hits' frequency and timestamp updated at the step's clock
@@ -779,18 +801,20 @@ def check_entry_point(dev, rng, t, meta, live, probe_keys,
         f"plain versions' run bit for bit")
 
     # Timing at B = 2048.  metadata_update's plain version syncs the host
-    # once (the most entries on one slot), so it is timed from Python.
+    # once (the most entries on one slot), so it is timed from Python; the
+    # kernel in place (the outputs are the inputs: no copy) on copies of
+    # the columns, then its functional form, which writes fresh columns.
     torch.cuda.synchronize()
     from repro_torch.kernels.bucket_lookup import bucket_lookup
-    from repro_torch.kernels.metadata_update import (metadata_update,
+    from repro_torch.kernels.metadata_update import (TILE, metadata_update,
                                                      metadata_update_into)
     from repro_torch.kernels.sampled_eviction import sampled_eviction
     margs, _ = shapes[("metadata_update", 2048)]
-    fresh = tuple(a.clone() for a in margs[:2])
+    own = tuple(a.clone() for a in margs[:2])
+    in_place = lambda *a: metadata_update_into(*own, *a[2:], *own)
     kern = {"sampled_eviction": (sampled_eviction, ref.sampled_eviction_ref),
             "bucket_lookup": (bucket_lookup, ref.bucket_lookup_ref),
-            "metadata_update": (lambda *a: metadata_update_into(*a, *fresh),
-                                ref.metadata_update_ref)}
+            "metadata_update": (in_place, ref.metadata_update_ref)}
     for name, (k_fn, p_fn) in kern.items():
         args, kw = shapes[(name, 2048)]
         r = results[name]
@@ -805,28 +829,174 @@ def check_entry_point(dev, rng, t, meta, live, probe_keys,
             f"device ({r['eager_ms'] * 1e3:.2f} us launched from Python), "
             f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes']} bytes)")
-    # The fresh-output copy of freq and last_ts: each read and written once.
+    # The functional form: the kernel copies the two columns into fresh
+    # outputs in the same launch.  Its bound adds the columns' copy (each
+    # read once and written once); PyTorch's copy of them on its own beside.
     r = results["metadata_update"]
     r["copy_ms"] = time_ms(lambda: tuple(a.clone() for a in margs[:2]))
     r["copy_bound_ms"] = (2 * sum(a.numel() * a.element_size()
                                   for a in margs[:2]) / HBM_BYTES_PER_S * 1e3)
     r["wrapper_ms"] = time_ms(lambda: metadata_update(*margs))
-    log(f"metadata_update's fresh-column copy: {r['copy_ms'] * 1e3:.2f} us, "
-        f"bound {r['copy_bound_ms'] * 1e3:.2f} us; copy and passes together "
-        f"{r['wrapper_ms'] * 1e3:.2f} us")
-    # The passes where slots repeat most: every slot twice, B / 2 entries
-    # apart (each claimer scans half the batch), and all on one slot (one
-    # claimer adds B deltas in order).  Bit-equal to the plain version.
+    r["wrapper_bound_ms"] = r["copy_bound_ms"] + r["bound_ms"]
+    log(f"metadata_update's functional form (fresh outputs, the copy in the "
+        f"launch): {r['wrapper_ms'] * 1e3:.2f} us, bound "
+        f"{r['wrapper_bound_ms'] * 1e3:.2f} us; PyTorch's copy of the two "
+        f"columns alone {r['copy_ms'] * 1e3:.2f} us, bound "
+        f"{r['copy_bound_ms'] * 1e3:.2f} us")
+    # In place where slots repeat most or crowd one tile: every slot twice,
+    # B / 2 entries apart; all on one slot (a chain of B adds); B distinct
+    # slots of one tile (one CTA packs and combines them all).  Bit-equal
+    # to the plain version.
     for tag, s in (("pairs", np.tile(rng.choice(live, B // 2), 2)),
-                   ("one_slot", np.full(B, live[0]))):
+                   ("one_slot", np.full(B, live[0])),
+                   ("one_tile", md_slots(rng, "one_tile", B, n, TILE))):
         args = (margs[0], margs[1], torch.from_numpy(s).to(dev)) + margs[3:]
         got, want = metadata_update(*args), ref.metadata_update_ref(*args)
         for i, name in enumerate(("freq", "last_ts")):
             same_bits(f"metadata_update[{tag}].{name}", got[i], want[i])
-        r[f"ms_{tag}"] = time_ms(lambda: metadata_update_into(*args, *fresh))
-    log(f"metadata_update's passes with every slot twice, B / 2 apart: "
+        r[f"ms_{tag}"] = time_ms(lambda: in_place(*args))
+    log(f"metadata_update in place with every slot twice, B / 2 apart: "
         f"{r['ms_pairs'] * 1e3:.2f} us; with all {B} on one slot: "
-        f"{r['ms_one_slot'] * 1e3:.2f} us (bit-equal to the plain version)")
+        f"{r['ms_one_slot'] * 1e3:.2f} us; {B} distinct slots of one tile: "
+        f"{r['ms_one_tile'] * 1e3:.2f} us (bit-equal to the plain version)")
+    # A large batch: every CTA reads all of it (from L2).
+    B = 65_536
+    s = rng.choice(live, B)
+    s[rng.random(B) < 0.3] = -1
+    args = (margs[0], margs[1], torch.from_numpy(s).to(dev),
+            torch.from_numpy(rng.random(B, np.float32) * 10).to(dev),
+            margs[4])
+    got, want = metadata_update(*args), ref.metadata_update_ref(*args)
+    for i, name in enumerate(("freq", "last_ts")):
+        same_bits(f"metadata_update[B={B}].{name}", got[i], want[i])
+    r["ms_65k"] = time_ms(lambda: in_place(*args))
+    r["bound_ms_65k"] = (bound_bytes("metadata_update", args, {})
+                         / HBM_BYTES_PER_S * 1e3)
+    r["wrapper_ms_65k"] = time_ms(lambda: metadata_update(*args))
+    r["wrapper_bound_ms_65k"] = r["copy_bound_ms"] + r["bound_ms_65k"]
+    log(f"metadata_update at B={B}: in place {r['ms_65k'] * 1e3:.2f} us "
+        f"(bound {r['bound_ms_65k'] * 1e3:.3f} us), functional "
+        f"{r['wrapper_ms_65k'] * 1e3:.2f} us (bound "
+        f"{r['wrapper_bound_ms_65k'] * 1e3:.2f} us)")
+
+
+def md_slots(rng, case: str, B: int, C: int, tile: int):
+    """metadata_update's slots i64[B] in one of MD_CASES on a C-slot
+    table cut into tiles of ``tile`` slots."""
+    import numpy as np
+    lo = tile * ((C // tile) // 2)          # a tile in the middle
+    span = min(tile, C - lo)
+    if case == "one_slot":
+        return np.full(B, lo + 5, np.int64)
+    if case == "pairs":                     # every slot twice, B / 2 apart
+        return np.tile(rng.choice(C, (B + 1) // 2, replace=False), 2)[:B]
+    if case == "one_tile":                  # distinct while B fits the tile
+        return lo + rng.choice(span, B, replace=B > span)
+    if case == "tile_edges":                # both sides of every tile edge
+        edges = np.arange(tile, C, tile)
+        return rng.choice(np.concatenate([edges - 1, edges, [0, C - 1]]), B)
+    s = rng.integers(0, C, B)
+    if case == "no_ops":                    # -1 and slots past the table
+        bad = rng.random(B) < 0.5
+        s[bad] = rng.choice(np.array([-1, C, C + 7, 2**40]), int(bad.sum()))
+    else:                                   # mixed: a bit of everything
+        s = rng.integers(-1, C + 3, B)
+        s[1:5] = s[0]
+    return s
+
+
+def check_bucket_cases(dev, rng) -> None:
+    """bucket_lookup bit-equal to its plain version at every assoc of
+    BL_ASSOCS (a 64-slot bucket in two 32-slot chunks) on a table whose
+    last assoc - 1 slots are a ragged tail no bucket covers (live keys
+    there must miss), at every B of BL_BATCHES; one launch a call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    ops.reset_launches()
+    calls = 0
+    for assoc in BL_ASSOCS:
+        tab = random_table(rng, max(64, 16384 // assoc), assoc, 1_000,
+                           1 << 20)
+        tail = assoc - 1
+        key = np.concatenate([tab["key"], rng.integers(
+            1, 2**32, tail, dtype=np.uint64).astype(np.int64)])
+        size = np.concatenate([tab["size"], np.full(tail, 3)])
+        held = np.nonzero(size > 0)[0]      # live, history and tail keys
+        cols = (torch.from_numpy(key).to(dev), torch.from_numpy(size).to(dev))
+        for B in BL_BATCHES:
+            q = key[rng.choice(held, B)]
+            miss = rng.random(B) < 0.3
+            q[miss] = rng.integers(0, 2**32, int(miss.sum()),
+                                   dtype=np.uint64).astype(np.int64)
+            q[-1] = key[-1] if tail else q[-1]   # a key of the ragged tail
+            keys = torch.from_numpy(q.astype(np.int64)).to(dev)
+            got = ops.bucket_lookup_op(*cols, keys, assoc=assoc)
+            want = ref.bucket_lookup_ref(*cols, keys, assoc=assoc)
+            calls += 1
+            tag = f"bucket_lookup[assoc={assoc},C={key.size},B={B}]"
+            same_int(f"{tag}.found", got[0], want[0])
+            same_int(f"{tag}.slot", got[1], want[1])
+            if B > 1 and not bool(got[0].any()):
+                raise AssertionError(f"{tag}: no key found")
+    if ops.launches()["bucket_lookup"] != calls:
+        raise AssertionError(f"bucket_lookup: {ops.launches()} for {calls} "
+                             "calls")
+    log(f"bucket_lookup agrees with its plain version at assoc "
+        f"{', '.join(map(str, BL_ASSOCS))} (C not a multiple of assoc) x "
+        f"B = {', '.join(map(str, BL_BATCHES))}: {calls} launches, bit-equal")
+
+
+def check_metadata_cases(dev, rng, freq, last) -> None:
+    """metadata_update bit-equal to its plain version in every case of
+    MD_CASES at every B of MD_BATCHES, on the phase's table and on a
+    prefix of it 5 slots shorter (C not a multiple of the kernel's tile,
+    nor of the four floats of its 16-byte copy), with non-integer deltas
+    and a NaN in last_ts at the batch's first and middle slots: into fresh
+    outputs, in place (the outputs are the inputs' own storage), and a
+    second launch the same bits; one launch a call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.metadata_update import TILE, metadata_update_into
+
+    ops.reset_launches()
+    calls = 0
+    clock = torch.tensor(1_000_016.5, dtype=torch.float32, device=dev)
+    for C in (freq.shape[0], freq.shape[0] - 5):
+        for B in MD_BATCHES:
+            for case in MD_CASES:
+                s = md_slots(rng, case, B, C, TILE)
+                lt = last[:C].clone()
+                nan = s[[0, B // 2]]
+                lt[torch.from_numpy(nan[(nan >= 0) & (nan < C)]).to(dev)] = (
+                    float("nan"))
+                args = (freq[:C], lt, torch.from_numpy(s).to(dev),
+                        torch.from_numpy(rng.random(B, np.float32) * 10)
+                        .to(dev), clock)
+                want = ref.metadata_update_ref(*args)
+                got = ops.metadata_update_op(*args)
+                again = ops.metadata_update_op(*args[:4], 1_000_016.5)
+                own = (freq[:C].clone(), lt.clone())
+                metadata_update_into(*own, *args[2:], *own)
+                calls += 3
+                tag = f"metadata_update[C={C},B={B},{case}]"
+                for i, name in enumerate(("freq", "last_ts")):
+                    same_bits(f"{tag}.{name}", got[i], want[i])
+                    same_bits(f"{tag}.{name} (second launch)", again[i],
+                              got[i])
+                    same_bits(f"{tag}.{name} (in place)", own[i], want[i])
+                if B > 1 and torch.equal(got[0], freq[:C]):
+                    raise AssertionError(f"{tag}: nothing changed")
+    if ops.launches()["metadata_update"] != calls:
+        raise AssertionError(f"metadata_update: {ops.launches()} for {calls}"
+                             " calls")
+    log(f"metadata_update agrees with its plain version in the cases "
+        f"{', '.join(MD_CASES)} x B = {', '.join(map(str, MD_BATCHES))} x C "
+        f"= {freq.shape[0]} and {freq.shape[0] - 5} (fresh outputs, in "
+        f"place, a second launch; a NaN in last_ts): {calls} launches, "
+        f"bit-equal")
 
 
 def bound_bytes(name: str, args, kw) -> int:
@@ -1964,7 +2134,9 @@ def main() -> int:
              "bound_ms_given",
              "max_abs_err_f32", "max_abs_err_32k", "row_err", "row_err_f32",
              "row_err_32k", "controls", "layer_row_err", "ms_pairs",
-             "ms_one_slot", "launches_gemma_2b", "layer_row_err_gemma_2b",
+             "ms_one_slot", "ms_one_tile", "wrapper_bound_ms", "ms_65k",
+             "bound_ms_65k", "wrapper_ms_65k", "wrapper_bound_ms_65k",
+             "launches_gemma_2b", "layer_row_err_gemma_2b",
              *(f + k for k in ("_4k", "_gemma_4k") for f in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")))
     kernels = []

@@ -31,7 +31,8 @@
 // 32-slot chunks, in slot order), and each lane loads its slot's words
 // with no condition, so the bucket is one dependent round trip after the
 // hash.  __ballot_sync + __ffs give the first match (jnp.argmax's first
-// index); tile shuffles give the argmins.  The hash, the compares and the
+// index; common.cuh's tile_match, which bucket_lookup shares); tile
+// shuffles give the argmins.  The hash, the compares and the
 // age stay in 32-bit registers; f32 priorities use the round-to-nearest
 // intrinsics, as ranked_eviction's do.  The table stays in device memory
 // (the TPU kernel's whole-table VMEM block has no counterpart).  The
@@ -75,12 +76,11 @@ __global__ void __launch_bounds__(THREADS) access_probe_kernel(
     unsigned long long* __restrict__ launches) {
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
   const int lane = threadIdx.x & 31;
-  const int sub = lane & (tile - 1);
-  const int tbase = lane - sub;
+  const KeyTile t = key_tile(tile);
+  const int sub = t.sub;
   const int warp = (blockIdx.x * THREADS + threadIdx.x) >> 5;
   const int b = warp * (32 / tile) + lane / tile;
   const bool valid = b < n;  // every lane stays for the warp's ballots
-  const unsigned tmask = tile == 32 ? FULL : ((1u << tile) - 1u) << tbase;
 
   const uint32_t key = valid ? (uint32_t)keys[b] : 0u;
   const uint32_t kh = splitmix32(key);
@@ -126,21 +126,16 @@ __global__ void __launch_bounds__(THREADS) access_probe_kernel(
     load(c);
     const int a = (c << 5) + sub;
     const bool in = valid && a < assoc;
-    const bool live = in && sz > 0u && sz < 255u;
+    const bool live = in && live_slot(sz);
     const bool hist = in && sz == 255u;
     const uint32_t age = hctr - p;
     const bool hvalid = hist && age < history_len;
-    const unsigned m_match = __ballot_sync(FULL, live && k == key) & tmask;
-    const unsigned m_hist = __ballot_sync(FULL, hvalid && h == kh) & tmask;
-    if (mi < 0 && m_match) mi = (c << 5) + __ffs(m_match >> tbase) - 1;
-    if (hi < 0 && m_hist) hi = (c << 5) + __ffs(m_hist >> tbase) - 1;
+    tile_match(mi, in, sz, k, key, c, t);
+    tile_first(hi, hvalid && h == kh, c, t);
     if (FACTS) {
-      const unsigned m_free =
-          __ballot_sync(FULL, in && (sz == 0u || (hist && !hvalid))) & tmask;
-      const unsigned m_live = __ballot_sync(FULL, live) & tmask;
-      any_hist |= (__ballot_sync(FULL, hvalid) & tmask) != 0u;
-      if (fi < 0 && m_free) fi = (c << 5) + __ffs(m_free >> tbase) - 1;
-      if (li < 0 && m_live) li = (c << 5) + __ffs(m_live >> tbase) - 1;
+      tile_first(fi, in && (sz == 0u || (hist && !hvalid)), c, t);
+      tile_first(li, live, c, t);
+      any_hist |= (__ballot_sync(FULL, hvalid) & t.mask) != 0u;
       const float v = hvalid ? -__uint2float_rn(age) : CUDART_INF_F;
       if (in && (v < hv || (v == hv && a < hix))) {
         hv = v;
@@ -208,8 +203,7 @@ extern "C" int access_probe_launch(
     bool* has_live, int64_t* cand, unsigned long long* launches,
     void* stream) {
   if (n > 0 && assoc > 0) {
-    int tile = 1;
-    while (tile < assoc && tile < 32) tile <<= 1;
+    const int tile = probe_tile(assoc);
     const long long per_block = (long long)(THREADS / 32) * (32 / tile);
     const int blocks = (int)((n + per_block - 1) / per_block);
     const Facts f = {ins,    last,      freq,     ts,        codes,

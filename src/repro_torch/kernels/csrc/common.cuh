@@ -1,4 +1,5 @@
-// Device code shared by the cache kernels: the key hash, the expert
+// Device code shared by the cache kernels: the key hash, the two bucket
+// probes' tile of lanes a key and its bucket match, the expert
 // priorities, the tile and warp argmins, and what the two eviction
 // kernels share: the threefry draw, the one-round-trip sample gather and
 // the interleaved argmins.  Header-only; every function is inline and
@@ -19,6 +20,51 @@ __device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
   x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
   x = (x ^ (x >> 13)) * 0xC2B2AE35u;
   return x ^ (x >> 16);
+}
+
+// The bucket probes (access_probe, bucket_lookup) give each key a tile of
+// T lanes of one warp, T the power of two >= assoc, at most 32.  Lane
+// `sub` of the tile holds slot sub of each 32-slot chunk of the bucket,
+// so a larger bucket is walked in chunks, in slot order.
+__host__ __device__ inline int probe_tile(int assoc) {
+  int t = 1;
+  while (t < assoc && t < 32) t <<= 1;
+  return t;
+}
+
+struct KeyTile {
+  int sub;        // this lane's place in its tile
+  int tbase;      // the tile's first lane in the warp
+  unsigned mask;  // the tile's lanes
+};
+
+__device__ __forceinline__ KeyTile key_tile(int tile) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (tile - 1);
+  const int tbase = lane - sub;
+  return {sub, tbase, tile == 32 ? FULL : ((1u << tile) - 1u) << tbase};
+}
+
+// first := the bucket position of the first lane of the tile whose `hit`
+// holds in chunk c, unless an earlier chunk set it (jnp.argmax's first
+// index over the bucket).  Every lane of the warp takes part.
+__device__ __forceinline__ void tile_first(int& first, bool hit, int c,
+                                           const KeyTile& t) {
+  const unsigned m = __ballot_sync(FULL, hit) & t.mask;
+  if (first < 0 && m) first = (c << 5) + __ffs(m >> t.tbase) - 1;
+}
+
+// A live slot: 0 < size < 255 (0 is empty, 255 a history entry).
+__device__ __forceinline__ bool live_slot(uint32_t sz) {
+  return sz > 0u && sz < 255u;
+}
+
+// The bucket match: mi := the first live slot holding `key`, from this
+// lane's slot of chunk c (size sz, key k; `in` when the lane has a slot).
+__device__ __forceinline__ void tile_match(int& mi, bool in, uint32_t sz,
+                                           uint32_t k, uint32_t key, int c,
+                                           const KeyTile& t) {
+  tile_first(mi, in && live_slot(sz) && k == key, c, t);
 }
 
 // Expert codes, as kernels/sampled_eviction.py::KERNEL_EXPERTS orders them.

@@ -2,7 +2,8 @@
 (``csrc/hit_metadata_update.cu``), last_ts / ext at hit slots and the
 FC-cache freq FAA at flush slots, in place in the table's columns, and
 ``metadata_update`` (``csrc/metadata_update.cu``), the combining freq add
-and last_ts max at one clock, into fresh tensors.
+and last_ts max at one clock, into fresh tensors (the copy is in the
+same launch) or in place.
 
 Each takes CUDA tensors already checked by its wrapper in
 ``kernels/ops.py``; the plain versions are
@@ -14,6 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import runtime
+
+# Table slots that one CTA of csrc/metadata_update.cu owns (its TILE):
+# the tests and chip_smoke.py place entries in one tile and on the edges
+# of tiles with it.
+TILE = 16384
 
 
 def hit_metadata_update_(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
@@ -36,28 +42,31 @@ def hit_metadata_update_(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
 
 
 def metadata_update(freq, last_ts, slots, deltas, clock):
-    """Returns updated (freq, last_ts), each a new tensor.  ``clock`` is
-    a 0-d f32 tensor on the card or a float."""
-    out = (freq.clone(), last_ts.clone())
+    """Returns updated (freq, last_ts), each a new tensor, which the
+    kernel writes whole (the copy of the input columns is in the launch).
+    ``clock`` is a 0-d f32 tensor on the card or a float."""
+    out = (torch.empty_like(freq), torch.empty_like(last_ts))
     metadata_update_into(freq, last_ts, slots, deltas, clock, *out)
     return out
 
 
 def metadata_update_into(freq, last_ts, slots, deltas, clock, freq_out,
                          last_out) -> None:
-    """The kernel's passes alone: update ``*_out``, which hold a copy of
-    the input columns, at the slots the batch names."""
-    C = freq.shape[0]
+    """Write the updated columns into ``*_out``: either the inputs' own
+    tensors (the update in place, no copy) or other tensors of their
+    shape, which are written whole."""
+    if slots.shape[0] == 0:   # no launch: the copy alone
+        for src, dst in ((freq, freq_out), (last_ts, last_out)):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        return
     dev = freq.device
-    claim = torch.empty(C, dtype=torch.int32, device=dev)
-    count = torch.empty(C, dtype=torch.int32, device=dev)
     on_card = isinstance(clock, torch.Tensor)
     err = runtime.lib().metadata_update_launch(
-        slots.data_ptr(), deltas.data_ptr(), slots.shape[0], C,
+        slots.data_ptr(), deltas.data_ptr(), slots.shape[0], freq.shape[0],
         freq.data_ptr(), last_ts.data_ptr(),
         clock.data_ptr() if on_card else None,
-        0.0 if on_card else clock, claim.data_ptr(), count.data_ptr(),
-        freq_out.data_ptr(), last_out.data_ptr(),
+        0.0 if on_card else clock, freq_out.data_ptr(), last_out.data_ptr(),
         runtime.counter("metadata_update", dev),
         torch.cuda.current_stream(dev).cuda_stream)
     runtime.check(err, "metadata_update")

@@ -56,7 +56,7 @@ SIGNATURES = {
     "sampled_eviction_launch": [P, P, P, P, L, P, P, P, F, L, I, I, I, I, P, P,
                                 P, P, P, P],
     "bucket_lookup_launch": [P, P, P, I, I, L, P, P, P, P],
-    "metadata_update_launch": [P, P, I, L, P, P, P, F, P, P, P, P, P, P],
+    "metadata_update_launch": [P, P, I, L, P, P, P, F, P, P, P, P],
     "drop_scatter_launch": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                             P],
     "launch_floor_launch": [P],

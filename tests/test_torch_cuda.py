@@ -33,6 +33,7 @@ from repro_torch.core import types as t_types
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core.hashing import hash_key
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.metadata_update import TILE, metadata_update_into
 from repro_torch.models import attention, forward, init_params
 from repro_torch.serve import DecodeEngine
 from repro_torch.workloads import gen, plan
@@ -235,6 +236,97 @@ def test_probe_forms_match_plain_versions_on_the_card(cuda, assoc, B):
     for g, w in zip(alone, want[:4]):
         assert torch.equal(g, w)
     assert ops.launches()["access_probe"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 2048])
+@pytest.mark.parametrize("assoc", [1, 4, 6, 8, 16, 64])
+def test_bucket_lookup_matches_plain_version_on_the_card(cuda, assoc, B):
+    """One tile of lanes a key (a 64-slot bucket in two 32-slot chunks) on
+    a table whose last assoc - 1 slots are a ragged tail that no bucket
+    covers (C not a multiple of assoc; its keys must miss): bit-equal to
+    the plain version, one launch a call."""
+    rng = np.random.default_rng(assoc * 11 + B)
+    tk, size, _, _ = _table(rng, max(16, 4096 // assoc), assoc, 3, 500)
+    tail = assoc - 1
+    tk = np.concatenate([tk, rng.integers(1, 2**32, tail, dtype=np.uint64)
+                         .astype(np.int64)])
+    size = np.concatenate([size, np.full(tail, 3)])
+    held = np.nonzero(size > 0)[0]             # live, history, tail
+    q = np.where(rng.random(B) < 0.6, tk[rng.choice(held, B)],
+                 rng.integers(1, 2**32, B, dtype=np.uint64).astype(np.int64))
+    q[-1] = tk[-1]
+    args = (_t(tk, cuda), _t(size, cuda), _t(q, cuda))
+    ops.reset_launches()
+    got = ops.bucket_lookup_op(*args, assoc=assoc)
+    want = ref.bucket_lookup_ref(*args, assoc=assoc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert B == 1 or bool(got[0].any())
+    assert ops.launches()["bucket_lookup"] == 1
+
+
+def _md_slots(rng, case, B, C, tile):
+    """metadata_update's slots i64[B] of one case on a C-slot table cut
+    into tiles of ``tile`` slots (as chip_smoke.py::md_slots)."""
+    lo = tile * ((C // tile) // 2)             # a tile in the middle
+    span = min(tile, C - lo)
+    if case == "one_slot":
+        return np.full(B, lo + 5, np.int64)
+    if case == "pairs":                        # every slot twice, B / 2 apart
+        return np.tile(rng.choice(C, (B + 1) // 2, replace=False), 2)[:B]
+    if case == "one_tile":                     # distinct while B fits
+        return lo + rng.choice(span, B, replace=B > span)
+    if case == "tile_edges":                   # both sides of every edge
+        edges = np.arange(tile, C, tile)
+        return rng.choice(np.concatenate([edges - 1, edges, [0, C - 1]]), B)
+    s = rng.integers(0, C, B)
+    if case == "no_ops":                       # -1 and past the table
+        bad = rng.random(B) < 0.5
+        s[bad] = rng.choice(np.array([-1, C, C + 7, 2**40]), int(bad.sum()))
+    else:                                      # mixed
+        s = rng.integers(-1, C + 3, B)
+        s[1:5] = s[0]
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_slot", "pairs", "one_tile",
+                                  "tile_edges", "no_ops", "mixed"])
+@pytest.mark.parametrize("B", [1, 63, 2048, 65_536])
+def test_metadata_update_matches_plain_version_on_the_card(cuda, B, case):
+    """The one-launch metadata_update, bit-equal to its plain version,
+    where the slots fall against the kernel's tiles (one slot; every slot
+    twice, B / 2 apart; distinct slots of one tile; both sides of the
+    tile edges; -1 and past-C no-ops; a mix), on a table whose C is not a
+    multiple of the tile, once 16-byte aligned and once 4 bytes past (the
+    copy's float-at-a-time path), with non-integer deltas and a NaN in
+    last_ts: into fresh outputs, in place (the outputs are the inputs'
+    own storage), and a second launch the same bits.  One launch a call."""
+    rng = np.random.default_rng(B + len(case))
+    C = 4 * TILE + 777
+    clock = torch.tensor(1_000_016.5, device=cuda)
+    ops.reset_launches()
+    for off in (0, 1):
+        s = _md_slots(rng, case, B, C, TILE)
+        f_base = torch.from_numpy(rng.integers(0, 50_000, C + 1).astype(
+            np.float32) + rng.random(C + 1, np.float32)).to(cuda)
+        l_base = torch.from_numpy(rng.integers(0, 10**6, C + 1).astype(
+            np.float32)).to(cuda)
+        nan = s[[0, B // 2]]
+        l_base[_t(off + nan[(nan >= 0) & (nan < C)], cuda)] = float("nan")
+        freq, last = f_base[off:off + C], l_base[off:off + C]
+        args = (freq, last, _t(s, cuda),
+                torch.from_numpy(rng.random(B, np.float32) * 10).to(cuda),
+                clock)
+        want = ref.metadata_update_ref(*args)
+        got = ops.metadata_update_op(*args)
+        again = ops.metadata_update_op(*args[:4], 1_000_016.5)
+        own = (f_base.clone()[off:off + C], l_base.clone()[off:off + C])
+        metadata_update_into(*own, *args[2:], *own)
+        for out in (got, again, own):
+            assert all(map(_same_bits, out, want))
+        assert B == 1 or not torch.equal(got[0], freq)
+    assert ops.launches()["metadata_update"] == 6
 
 
 def _apply_groups(rng, dev, n, B, K, W=2):

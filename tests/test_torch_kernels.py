@@ -560,7 +560,8 @@ def test_sampled_eviction_out_of_range_choice_and_positions():
 
 
 @pytest.mark.parametrize("C,A,B", [(512, 8, 16), (4096, 8, 32), (1024, 4, 8),
-                                   (515, 8, 13)])
+                                   (515, 8, 13), (2048, 16, 24),
+                                   (2063, 16, 13)])
 def test_bucket_lookup_matches_pallas(rng, C, A, B):
     """tests/test_kernels.py's planted table; C = 515 leaves a ragged
     tail (floor(C / A) buckets) and B = 13 is odd."""
@@ -649,6 +650,68 @@ def test_metadata_update_combines_duplicates():
     assert float(l2[7]) == 5.0 and float(l2[0]) == 0.0
     assert np.array_equal(f2.numpy(), np.asarray(wf))
     assert np.array_equal(l2.numpy(), np.asarray(wl))
+
+
+def _jax_updates(freq, last, slots, deltas, clock):
+    """The Pallas op's and repro/kernels/ref.py's metadata_update_ref's
+    (freq, last_ts)."""
+    return (jops.metadata_update_op(freq, last, slots, deltas, clock),
+            jref.metadata_update_ref(jnp.asarray(freq), jnp.asarray(last),
+                                     jnp.asarray(slots), jnp.asarray(deltas),
+                                     clock))
+
+
+@pytest.mark.parametrize("case", ["one_slot", "pairs"])
+def test_metadata_update_repeated_slots_match_both_jax_functions(case):
+    """Integer deltas on the shapes the CUDA kernel's combine must meet:
+    all 2048 entries on one slot (one chain of adds), and every slot
+    twice, B / 2 entries apart.  Bit-equal to the Pallas op and to its
+    jnp oracle."""
+    rng = np.random.default_rng(21)
+    C, B = 4096, 2048
+    freq = rng.integers(0, 100, C).astype(np.float32)
+    last = rng.integers(0, 100, C).astype(np.float32)
+    if case == "one_slot":
+        slots = np.full(B, 517, np.int32)
+    else:
+        slots = np.tile(rng.choice(C, B // 2, replace=False), 2)
+    slots = slots.astype(np.int32)
+    deltas = rng.integers(0, 10, B).astype(np.float32)
+    gf, gl = ops.metadata_update_op(_f(freq), _f(last), _t(slots), _f(deltas),
+                                    777.0)
+    for wf, wl in _jax_updates(freq, last, slots, deltas, 777.0):
+        assert np.array_equal(gf.numpy(), np.asarray(wf))
+        assert np.array_equal(gl.numpy(), np.asarray(wl))
+    if case == "one_slot":
+        assert float(gf[517]) == freq[517] + deltas.sum()
+        assert float(gl[517]) == 777.0
+
+
+def test_metadata_update_one_slot_adds_non_integer_deltas_in_order():
+    """All 2048 non-integer deltas on one slot: bit-equal to adding them
+    one by one in batch order, and within rtol 1e-6 of the Pallas op
+    (which may sum a slot's deltas before adding them)."""
+    rng = np.random.default_rng(23)
+    C, B = 1024, 2048
+    freq = (rng.integers(0, 100, C) + rng.random(C)).astype(np.float32)
+    last = rng.integers(0, 100, C).astype(np.float32)
+    slots = np.full(B, 7, np.int32)
+    deltas = (rng.random(B) * 10).astype(np.float32)
+    gf, gl = ops.metadata_update_op(_f(freq), _f(last), _t(slots), _f(deltas),
+                                    777.5)
+    sf, sl = _sequential_update(freq, last, slots, deltas, 777.5)
+    assert np.array_equal(gf.numpy(), sf) and np.array_equal(gl.numpy(), sl)
+    wf, wl = jops.metadata_update_op(freq, last, slots, deltas, 777.5)
+    np.testing.assert_allclose(gf.numpy(), np.asarray(wf), rtol=1e-6)
+    assert np.array_equal(gl.numpy(), np.asarray(wl))
+
+
+def test_metadata_update_tile_is_the_kernels():
+    """The tile that the card tests and chip_smoke.py place entries by
+    is the CUDA kernel's own."""
+    from repro_torch.kernels.metadata_update import TILE
+    src = (runtime.CSRC / "metadata_update.cu").read_text()
+    assert re.search(r"constexpr int TILE = (\d+);", src).group(1) == str(TILE)
 
 
 @pytest.mark.parametrize("seed,C,B", [(0, 777, 13), (1, 5, 40)])
