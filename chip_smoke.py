@@ -35,14 +35,19 @@ Phases, each of which raises (exit code != 0) on any failure:
    bitmaps in the kernel) at B = 1, 63 and 2048, K = 5, 33 and 64, E = 1,
    2 and 5, with lanes whose cdf stays below every draw (choice E, no
    victim), a scalar or a per-op quota and timestamps that wrap past
-   2^32.  Every output must be bit-equal.
+   2^32; and its tenant case (the multi-tenant step's): a tenant column
+   over 4 tenants, a filter of -1 and tenant ids, each op's tenant
+   picking its row of a [64, 4, E] cdf, W = 128, K = 5, 33 and 64, B =
+   1, 63 and 2048, each filtered op's victims of its own tenant.  Every
+   output must be bit-equal.
    An empty kernel is timed first, the launch floor.  Each kernel and
    its plain version are timed with CUDA events at the main path's
    shapes (the in-place ones on copies of the columns, with no copy in
    the time; ``ranked_eviction`` in its draw form); the probe alone, the
    insert group alone, ``ranked_eviction`` given the draw's offsets and
-   choices, and ``hit_metadata_update``'s functional form, which copies
-   the three columns first, on their own.
+   choices, its tenant case at phase 9's shape (W = 128, beside the
+   untenanted draw at W = 128), and ``hit_metadata_update``'s functional
+   form, which copies the three columns first, on their own.
    Then the three kernels that only the ``kernels.ops`` entry point
    reaches: ``bucket_lookup``, ``sampled_eviction`` (f32 columns padded
    at the tail by W = 20, 128 and 132 with empty slots, K = 5, 33 and
@@ -141,12 +146,36 @@ Phases, each of which raises (exit code != 0) on any failure:
    largest logit difference between the prefill and a one-lane decode
    replay of the first request's tokens.  Near-ties are counted and
    skipped; at least one position must be checked.
+9. Multi-tenant: ``benchmarks/tenants.py``'s three-tenant mix scaled to
+   phase 3's table (``tenant_mix`` of 4,032,000 requests over the 64
+   lanes: a zipf service over 2M keys, θ 0.9, 21 lanes; a scan tenant
+   over 2M hot keys with 60,000-key scans, 11 lanes; a flash crowd of up
+   to 8-block objects over 4M keys, 32 lanes), ``n_tenants=3`` with the
+   equal default budgets, ``sample_window=128``, ``sync_period=50``,
+   through ``execute()`` in 20 chunks of lane plans at batch 32 on both
+   backends.  After every chunk no tenant may be above its budget and
+   ``tenant_bytes`` must equal the table's live blocks per tenant
+   (recomputed on the card; the final table's also on the host).  Fused
+   and reference must be bit-equal (integers; ext and gds_L within 4 ulp,
+   the [T, E] weights within 16), every kernel launched once a step, each
+   tenant must have lost live objects between chunks, and the flash
+   tenant must have reached 90% of its budget.  Per-tenant hit ratios
+   come from ``execute(..., by_lane=True)``.
+10. L0: YCSB-B (95% GET, zipf 0.99) over 10M keys, 4,032,000 requests,
+   one lane plan at batch 32, on phase 3's table with ``l0_entries=8``
+   (``examples/dm_elastic_cache.py``'s count), on both backends and
+   fused with ``l0_entries=0`` (the control).  Fused and reference must
+   be bit-equal (the seven L0 client arrays and ``bucket_ver``
+   included); L0 hits and invalidations both seen, fewer read bytes than
+   the control and a hit ratio within 1 pp of it.
+   Phases 9 and 10 each count one eager step's operators of their config
+   and hold it to phase 3's whole-column rule.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
 counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
-engine's) and read just after it.
+engine's, phase 9's and 10's) and read just after it.
 
 The second-to-last line is the kernels' JSON record (each with the
 launch floor, ``floor_ms``), the last line
@@ -209,6 +238,18 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_ROW_TOL = {"bfloat16": 2 ** -7, "float32": 2 ** -16}
 FLASH_TILE = 128        # the bf16 kernel's query tile; its KV tile at D <= 128
 PREFILL_T, PREFILL_LONG_T = 4096, 32_768
+# Phase 9: benchmarks/tenants.py's three-tenant mix scaled to the table
+# (a steady zipf service, an LFU-friendly scan tenant, a flash crowd of
+# 8-block objects), run in CHUNKS chunks; phase 10: YCSB-B with the L0
+# entry count of examples/dm_elastic_cache.py.
+MIX_REQUESTS = 4_032_000
+TENANT_SPECS = (dict(kind="zipf", n_keys=2_000_000, theta=0.9, lanes=21),
+                dict(kind="scan", hot_keys=2_000_000, scan_len=60_000,
+                     lanes=11),
+                dict(kind="flash", hot_keys=4_000_000, max_blocks=8,
+                     lanes=32))
+CHUNKS = 20
+L0_ENTRIES = 8
 ENGINE = dict(requests=24, prompt=96, shared=48, new=16, lanes=4,
               page_size=16, pool_pages=32)
 
@@ -283,14 +324,22 @@ def close_f32(name, got, want, maxulp: int) -> float:
     return float(diff.abs().max()) if got.numel() else 0.0
 
 
-def same_parts(tag: str, a, b, maxulp: int) -> None:
+# The f32 columns that compound every weight sync's exp rounding.
+COMPOUNDED = ("weights", "local_weights", "penalty_acc")
+
+
+def same_parts(tag: str, a, b, maxulp: int,
+               weight_ulp: int | None = None) -> None:
     """Two (state, clients, stats) triples: integers bit-equal, f32
-    within maxulp."""
+    within maxulp (the COMPOUNDED columns within ``weight_ulp`` if
+    given)."""
     for part, ta, tb in zip(("state", "clients", "stats"), a, b):
         for f in ta._fields:
             x, y = getattr(ta, f), getattr(tb, f)
             if x.dtype.is_floating_point:
-                close_f32(f"{tag}.{part}.{f}", x, y, maxulp)
+                close_f32(f"{tag}.{part}.{f}", x, y,
+                          weight_ulp if weight_ulp is not None
+                          and f in COMPOUNDED else maxulp)
             else:
                 same_int(f"{tag}.{part}.{f}", x, y)
 
@@ -576,6 +625,21 @@ def check_kernels(dev, results: dict) -> float:
         f"{r['ms_given'] * 1e3:.2f} us, plain "
         f"{r['plain_ms_given'] * 1e3:.2f} us, bound "
         f"{r['bound_ms_given'] * 1e3:.3f} us")
+    # The draw form's tenant case at phase 9's shape (W = 128), beside the
+    # untenanted draw form at the same W on the same inputs.
+    args, kw = shapes[("ranked_eviction_tenant", 2048)]
+    r["ms_tenant"] = time_ms(lambda: ranked_eviction_draw(*args, **kw))
+    r["plain_ms_tenant"] = time_ms(lambda: ref.ranked_eviction_draw_ref(
+        *args, **kw))
+    r["bound_ms_tenant"] = (bound_bytes("ranked_eviction_tenant", args, kw)
+                            / HBM_BYTES_PER_S * 1e3)
+    args, kw = shapes[("ranked_eviction_w128", 2048)]
+    r["ms_w128"] = time_ms(lambda: ranked_eviction_draw(*args, **kw))
+    log(f"ranked_eviction's draw form with tenants (W = 128, K = 5, 3 of 4 "
+        f"tenants' rows): {r['ms_tenant'] * 1e3:.2f} us, plain "
+        f"{r['plain_ms_tenant'] * 1e3:.2f} us, bound "
+        f"{r['bound_ms_tenant'] * 1e3:.3f} us; untenanted at W = 128 "
+        f"{r['ms_w128'] * 1e3:.2f} us")
     # The other forms: the probe alone (the entry point's and the tests'),
     # and the insert write as one group (the apply's launch before it
     # took all three groups at once).
@@ -666,6 +730,72 @@ def check_draw_form(dev, rng, size, meta, shapes: dict) -> None:
     offs, ech = ref.eviction_draw_ref(keys, cdf, ts, n)
     shapes[("ranked_eviction_given", B)] = (
         (size, *meta, offs, ech, must, args[-2], ts), kw)
+    check_tenant_draw(dev, rng, size, meta, shapes)
+
+
+def check_tenant_draw(dev, rng, size, meta, shapes: dict) -> None:
+    """Phase 2: the draw form's tenant case (the multi-tenant step's,
+    phase 9's) against its plain version on the full table: a tenant
+    column over 4 tenants, a filter of -1 and tenant ids, each op's
+    tenant picking its (lane, tenant) row of a [64, 4, E] cdf (every
+    seventh lane's tenant-1 row below every draw: choice E), W = 128, K =
+    5, 33 and 64, E = 2 and 5, B = 1, 63 and 2048; bit-equal, and each
+    filtered op's victims of its own tenant.  Then phase 9's shape (B =
+    2048, W = 128, K = 5, lru and lfu, per-op quotas) for the timing,
+    beside the untenanted draw form at the same W on the same inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import _expert_cdf
+    from repro_torch.kernels import ops, ref
+
+    n, Tn, W = size.shape[0], 4, 128
+    tenant = torch.from_numpy(rng.integers(0, Tn, n)).to(dev)
+    ten_np = tenant.cpu().numpy()
+
+    def inputs(B, E, K):
+        w = rng.random((LANES, Tn, E)).astype(np.float32) + 1e-4
+        w[::7, 1] = 1e-32
+        op_t = rng.integers(0, Tn, B)
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        return (t(rng.integers(0, 2**32, (LANES, 2), dtype=np.uint64)
+                  .astype(np.int64)),
+                _expert_cdf(torch.from_numpy(w)).to(dev),
+                t(rng.random(B) < 0.8), t(rng.integers(0, 4 * K, B)),
+                t(1_000_000 + np.arange(B) // LANES), t(op_t),
+                t(np.where(rng.random(B) < 0.5, -1, op_t)))
+
+    for B in (1, 63, 2048):
+        for K in (5, 33, 64):
+            for experts in (("lru", "lfu"), EXPERTS_ALL):
+                keys, cdf, must, quota, ts, op_t, tf = inputs(
+                    B, len(experts), K)
+                args = (size, *meta, keys, cdf, must, quota, ts)
+                kw = dict(window=W, k=K, experts=experts, tenant=tenant,
+                          tfilt=tf, op_tenant=op_t)
+                got = ops.ranked_eviction_draw_op(*args, **kw)
+                want = ref.ranked_eviction_draw_ref(*args, **kw)
+                tag = (f"ranked_eviction draw, tenants[B={B},W={W},K={K},"
+                       f"E={len(experts)}]")
+                for name, g, w in zip(("victims", "cand", "e_choice",
+                                       "bmap"), got, want):
+                    same_int(f"{tag}.{name}", g, w)
+                v, f = got[0].cpu().numpy(), tf.cpu().numpy()
+                for b in np.nonzero(f >= 0)[0]:
+                    if not (ten_np[v[b][v[b] >= 0]] == f[b]).all():
+                        raise AssertionError(f"{tag}: op {b} took another "
+                                             "tenant's slot")
+                if B == 2048 and not int((got[0] >= 0).sum()):
+                    raise AssertionError(f"{tag}: no victim")
+    log("ranked_eviction's draw form with tenants agrees with its plain "
+        "version at B = 1, 63, 2048 x K = 5, 33, 64 x E = 2, 5, W = 128 "
+        "(bit-equal; filtered ops take only their tenant's slots)")
+    keys, cdf, must, quota, ts, op_t, tf = inputs(2048, 2, 5)
+    kw = dict(window=W, k=5, experts=("lru", "lfu"))
+    args = (size, *meta, keys, cdf, must, quota, ts)
+    shapes[("ranked_eviction_tenant", 2048)] = (
+        args, dict(kw, tenant=tenant, tfilt=tf, op_tenant=op_t))
+    shapes[("ranked_eviction_w128", 2048)] = (
+        args[:5] + (cdf[:, 0].contiguous(),) + args[6:], kw)
 
 
 def same_bits(name, got, want) -> None:
@@ -1085,6 +1215,28 @@ def bound_bytes(name: str, args, kw) -> int:
         return int((hit.numel() + hts.numel() + emit.numel()
                     + delta.numel()) * 8 + hs * (8 + 8 + 16) + hs * (8 + 16)
                    + es * (8 + 8))
+    if name == "ranked_eviction_tenant":
+        # The draw form's tenant case: each slot scanned also reads its
+        # tenant word, each op its tenant id and filter, and the cdf is a
+        # row per (lane, tenant).
+        from repro_torch.kernels import ref
+        size, ins, last, freq, keys, cdf, must, quota, ts = args
+        tenant, tf, op_t = kw["tenant"], kw["tfilt"], kw["op_tenant"]
+        W, K, E = kw["window"], kw["k"], len(kw["experts"])
+        C, B = size.shape[0], ts.shape[0]
+        offs, _ = ref.eviction_draw_ref(keys, cdf, ts, C, op_t)
+        idx = (offs[:, None] + torch.arange(W, device=offs.device)[None, :]
+               ) % C
+        s = size[idx]
+        elig = ((s > 0) & (s < 255)
+                & ((tf[:, None] < 0) | (tenant[idx] == tf[:, None])))
+        cum = torch.cumsum(elig.to(torch.int64), dim=1)
+        scanned = (cum - elig.to(torch.int64)) < K
+        n_scan = torch.unique(idx[scanned]).numel()
+        n_samp = torch.unique(idx[elig & (cum <= K)]).numel()
+        return int(n_scan * 2 * 8 + n_samp * 3 * 8
+                   + B * (8 + 1 + 8 + 8 + 8) + keys.numel() * 8
+                   + cdf.numel() * 4 + B * (2 * K + E + 1) * 8)
     # ranked_eviction, given each op's offset and choice or drawing them.
     if name == "ranked_eviction":
         # The draw form: instead of offsets and choices, each lane's key
@@ -1290,6 +1442,252 @@ def run_main_path(dev, card: str, n_requests: int, seq_rounds: int,
     return out, gp, k2[:T]
 
 
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: the multi-tenant pool and the L0 near-cache.
+# ---------------------------------------------------------------------------
+
+def fused_and_reference(tag: str, runs: dict) -> None:
+    """Phase 9's and 10's runs, fused against reference: per-round (and
+    lane) hits and ops, and integer state bit-equal; ext and gds_L within
+    4 ulp, the compounded weight columns within 16."""
+    import numpy as np
+    a, b = runs["fused"], runs["reference"]
+    for name in ("hits", "ops"):
+        if not np.array_equal(a[name], b[name]):
+            raise AssertionError(f"{tag}: per-round {name} differ")
+    same_parts(tag, a["parts"], b["parts"], 4, weight_ulp=16)
+    d = ulp_diff(a["weights"], b["weights"])
+    if d > 16:
+        raise AssertionError(f"{tag}: weight trajectories {d} ulp apart")
+
+
+def tenant_occupancy(st, Tn: int):
+    """Each tenant's live blocks, recomputed on the card from the table
+    (T masked sums)."""
+    import torch
+    live = (st.size != 0) & (st.size != 255)
+    return torch.stack([torch.where(live & (st.tenant == t), st.size, 0)
+                        .sum() for t in range(Tn)])
+
+
+def live_keys(st, Tn: int) -> list:
+    """Each tenant's live keys, on the host (sorted)."""
+    import numpy as np
+    key, size, ten = (x.cpu().numpy() for x in (st.key, st.size, st.tenant))
+    live = (size != 0) & (size != 255)
+    return [np.unique(key[live & (ten == t)]) for t in range(Tn)]
+
+
+def run_tenants(dev, card: str, results: dict, profile: int = 0,
+                out_dir: Path | None = None) -> dict:
+    """Phase 9: the three-tenant mix through execute() in CHUNKS chunks on
+    both backends, checked at every chunk's end and against each other;
+    ``profile``: then trace that many of the first chunk's steps (and
+    twice as many) per backend."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import CacheConfig, execute, make
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.gen import tenant_mix
+    from repro_torch.workloads.plan import pack_rows
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    keys, ten, sizes = tenant_mix(MIX_REQUESTS, LANES, TENANT_SPECS,
+                                  seed=11, key_stride=1 << 23)
+    gen_s = time.perf_counter() - t0
+    T, Tn = keys.shape[0], len(TENANT_SPECS)
+    edges = np.linspace(0, T, CHUNKS + 1).astype(int)
+    t0 = time.perf_counter()
+    plans = [pack_rows(keys[a:b], N_BUCKETS, BATCH, sizes=sizes[a:b],
+                       tenants=ten[a:b]) for a, b in zip(edges, edges[1:])]
+    plan_s = time.perf_counter() - t0
+    n_groups = sum(gp.n_groups for gp in plans)
+    lane_tenant = ten[0]
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY,
+                      n_tenants=Tn, sample_window=128, sync_period=50)
+    budget = torch.tensor(cfg.tenant_budgets, device=dev)
+    log(f"phase 9: tenant_mix of {T * LANES} requests, {LANES} lanes "
+        f"(tenants' lanes {[int((lane_tenant == t).sum()) for t in range(Tn)]}"
+        f"), gen {gen_s:.1f} s; {CHUNKS} chunks planned at batch {BATCH} "
+        f"into {n_groups} groups in {plan_s:.1f} s; budgets "
+        f"{list(cfg.tenant_budgets)} blocks")
+    runs, out = {}, dict(requests=int(T * LANES), groups=n_groups)
+    for backend in ("fused", "reference"):
+        c = make(dataclasses.replace(cfg, backend=backend), LANES, SEED,
+                 device=dev)
+        ops.reset_launches()
+        wall, hits, opsl, ws = 0.0, [], [], []
+        peak = torch.zeros(Tn, dtype=torch.int64, device=dev)
+        removed, prev = np.zeros(Tn, np.int64), None
+        for gp, a, b in zip(plans, edges, edges[1:]):
+            r = execute(c, keys[a:b], plan=gp, sizes=sizes[a:b],
+                        tenants=ten[a:b], by_lane=True)
+            c, wall = r.cache, wall + r.wall_s
+            hits.append(r.hits)
+            opsl.append(r.ops)
+            ws.append(r.weights)
+            st = c.state
+            if not torch.equal(tenant_occupancy(st, Tn), st.tenant_bytes):
+                raise AssertionError(f"phase 9 {backend}: tenant_bytes "
+                                     f"{st.tenant_bytes.tolist()} is not the "
+                                     "table's live blocks per tenant")
+            if bool((st.tenant_bytes > budget).any()):
+                raise AssertionError(f"phase 9 {backend}: a tenant above its "
+                                     f"budget: {st.tenant_bytes.tolist()}")
+            peak = torch.maximum(peak, st.tenant_bytes)
+            if backend == "fused":
+                now = live_keys(st, Tn)
+                if prev is not None:
+                    removed += [np.setdiff1d(p, q, assume_unique=True).size
+                                for p, q in zip(prev, now)]
+                prev = now
+        launches = cache_launches()
+        hits, opsl = np.concatenate(hits), np.concatenate(opsl)
+        runs[backend] = dict(hits=hits, ops=opsl, weights=np.concatenate(ws),
+                             parts=(c.state, c.clients, c.stats))
+        s = c.stats
+        n = int(opsl.sum())
+        per_t = [float(hits[:, lane_tenant == t].sum()
+                       / max(opsl[:, lane_tenant == t].sum(), 1))
+                 for t in range(Tn)]
+        out[backend] = dict(
+            wall_s=wall, requests_per_s=n / wall, us_per_step=wall * 1e6
+            / n_groups, hit_ratio=float(hits.sum() / max(n, 1)),
+            hit_ratio_by_tenant=per_t, evictions=int(s.evictions),
+            insert_drops=int(s.insert_drops), launches=launches,
+            peak_blocks=peak.tolist())
+        log(f"[{card}] phase 9 {backend}: {n} requests in {wall:.2f} s = "
+            f"{n / wall:.0f} requests/s, {wall * 1e6 / n_groups:.0f} us/step, "
+            f"hit ratio {out[backend]['hit_ratio']:.4f}, by tenant "
+            f"{[round(h, 4) for h in per_t]}, evictions {int(s.evictions)}, "
+            f"insert_drops {int(s.insert_drops)}, tenant_bytes "
+            f"{c.state.tenant_bytes.tolist()}, peak {peak.tolist()}, "
+            f"launches {launches}")
+        if backend == "fused":
+            out["removed_by_tenant"] = removed.tolist()
+            if len(set(launches.values())) != 1 or min(
+                    launches.values()) < n_groups:
+                raise AssertionError(f"phase 9: not one launch of each "
+                                     f"kernel a step: {launches}")
+            results["ranked_eviction"]["launches_tenants"] = launches[
+                "ranked_eviction"]
+            # The final table's per-tenant live blocks, recomputed on the
+            # host.
+            size = c.state.size.cpu().numpy()
+            tcol = c.state.tenant.cpu().numpy()
+            live = (size != 0) & (size != 255)
+            host = [int(size[live & (tcol == t)].sum()) for t in range(Tn)]
+            if host != c.state.tenant_bytes.tolist():
+                raise AssertionError("phase 9: tenant_bytes differs from the "
+                                     f"host recompute {host}")
+            if not (removed > 0).all():
+                raise AssertionError(f"phase 9: a tenant never lost a live "
+                                     f"object: {removed.tolist()}")
+            flash = Tn - 1
+            if int(peak[flash]) < 0.9 * cfg.tenant_budgets[flash]:
+                raise AssertionError(f"phase 9: the flash tenant peaked at "
+                                     f"{int(peak[flash])} blocks")
+        elif launches != {k: 0 for k in launches}:
+            raise AssertionError("phase 9: the reference backend launched a "
+                                 "kernel")
+    fused_and_reference("phase 9", runs)
+    out["step_ops"] = check_step_traffic(dev, cfg, plans[0],
+                                         tag=" (phase 9's config)")
+    if profile:
+        profile_steps(dev, card, plans[0], keys[:edges[1]], profile, out_dir,
+                      cfg, "_tenants")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 9: fused == reference (integers bit-equal, weights <= 16 "
+        f"ulp); no tenant above its budget and tenant_bytes exact at every "
+        f"chunk; live objects lost by tenant {out['removed_by_tenant']}; "
+        f"phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def run_l0(dev, card: str, results: dict, profile: int = 0,
+           out_dir: Path | None = None) -> dict:
+    """Phase 10: YCSB-B through execute() with the L0 tier on both
+    backends and without it (the control), on one lane plan;
+    ``profile``: then trace that many of its steps (and twice as many)
+    per backend."""
+    import dataclasses
+    from repro_torch.core import CacheConfig, execute, make
+    from repro_torch.core.types import hit_ratio
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.gen import interleave, ycsb
+    from repro_torch.workloads.plan import pack_rows
+
+    t_phase = time.perf_counter()
+    keys, wr = ycsb("B", MIX_REQUESTS, n_keys=N_KEYS, seed=SEED)
+    k2, w2 = interleave(keys, LANES, wr)
+    gp = pack_rows(k2, N_BUCKETS, BATCH, is_write=w2)
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY,
+                      l0_entries=L0_ENTRIES)
+    log(f"phase 10: YCSB-B, {k2.size} requests over {N_KEYS} keys, "
+        f"{LANES} lanes, {gp.n_groups} groups at batch {BATCH}, "
+        f"l0_entries={L0_ENTRIES}")
+    runs, out = {}, dict(requests=int(k2.size), groups=gp.n_groups)
+    for name, c in (("fused", cfg),
+                    ("reference", dataclasses.replace(cfg,
+                                                      backend="reference")),
+                    ("control", dataclasses.replace(cfg, l0_entries=0))):
+        ops.reset_launches()
+        r = execute(make(c, LANES, SEED, device=dev), k2, plan=gp,
+                    is_write=w2)
+        launches = cache_launches()
+        s = r.stats
+        n = int(r.ops.sum())
+        out[name] = dict(
+            wall_s=r.wall_s, requests_per_s=n / r.wall_s,
+            us_per_step=r.wall_s * 1e6 / gp.n_groups,
+            hit_ratio=hit_ratio(s), l0_hits=int(s.l0_hits),
+            l0_invalidations=int(s.l0_invalidations),
+            l0_hit_share=int(s.l0_hits) / max(int(s.gets), 1),
+            rdma_read_bytes=int(s.rdma_read_bytes),
+            evictions=int(s.evictions), launches=launches)
+        log(f"[{card}] phase 10 {name}: {n} requests in {r.wall_s:.2f} s = "
+            f"{n / r.wall_s:.0f} requests/s, "
+            f"{r.wall_s * 1e6 / gp.n_groups:.0f} us/step, hit ratio "
+            f"{hit_ratio(s):.4f}, L0 hits {int(s.l0_hits)} (share of gets "
+            f"{out[name]['l0_hit_share']:.4f}), L0 invalidations "
+            f"{int(s.l0_invalidations)}, rdma_read_bytes "
+            f"{int(s.rdma_read_bytes)}, evictions {int(s.evictions)}, "
+            f"launches {launches}")
+        runs[name] = dict(hits=r.hits, ops=r.ops, weights=r.weights,
+                          parts=(r.state, r.clients, r.stats))
+        if name != "reference" and (len(set(launches.values())) != 1 or min(
+                launches.values()) < gp.n_groups):
+            raise AssertionError(f"phase 10 {name}: not one launch of each "
+                                 f"kernel a step: {launches}")
+        if name == "fused":
+            results["ranked_eviction"]["launches_l0"] = launches[
+                "ranked_eviction"]
+    fused_and_reference("phase 10", runs)
+    f, ctl = out["fused"], out["control"]
+    if not (f["l0_hits"] > 0 and f["l0_invalidations"] > 0):
+        raise AssertionError("phase 10: no L0 hit or no invalidation")
+    if not f["rdma_read_bytes"] < ctl["rdma_read_bytes"]:
+        raise AssertionError("phase 10: the L0 tier read no fewer bytes")
+    if abs(f["hit_ratio"] - ctl["hit_ratio"]) >= 0.01:
+        raise AssertionError(f"phase 10: hit ratio {f['hit_ratio']:.4f} is "
+                             f"1 pp or more from the control's "
+                             f"{ctl['hit_ratio']:.4f}")
+    out["step_ops"] = check_step_traffic(dev, cfg, gp,
+                                         tag=" (phase 10's config)")
+    if profile:
+        profile_steps(dev, card, gp, k2, profile, out_dir, cfg, "_l0")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: fused == reference (the L0 arrays and bucket_ver "
+        f"included); L0 hit share {f['l0_hit_share']:.4f}; read bytes "
+        f"{f['rdma_read_bytes']} vs the control's {ctl['rdma_read_bytes']} "
+        f"({f['rdma_read_bytes'] / ctl['rdma_read_bytes']:.4f}); hit ratio "
+        f"{f['hit_ratio']:.4f} vs {ctl['hit_ratio']:.4f}; phase wall "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
 # Operators that launch no device work: allocations and views.
 NO_KERNEL = ("empty", "view", "reshape", "expand", "select", "slice",
              "unsqueeze", "squeeze", "permute", "alias", "as_strided", "lift",
@@ -1336,17 +1734,19 @@ def step_ops(dev, cfg, gp) -> tuple:
     c = make(cfg, LANES, SEED, device=dev)
     g = {k: torch.from_numpy(getattr(gp, k)[0].astype(
         bool if k == "is_write" else "int64")).to(dev)
-        for k in ("keys", "is_write", "sizes")}
+        for k in ("keys", "is_write", "sizes", "tenants")
+        if getattr(gp, k, None) is not None}
     step = lambda: access_group_(cfg, c.state, c.clients, c.stats,
                                  g["keys"], is_write=g["is_write"],
-                                 obj_size=g["sizes"])
+                                 obj_size=g["sizes"], tenant=g.get("tenants"))
     step()                                     # builds and counters first
     with counted("fold_in"), counted("uniform"), Watch():
         step()
     return called, whole, drawn
 
 
-def check_step_traffic(dev, cfg, gp, strict: bool = True) -> dict:
+def check_step_traffic(dev, cfg, gp, strict: bool = True,
+                       tag: str = "") -> dict:
     """Phase 3's step check: the fused step returns no whole column but the
     two of the ``bytes_cached`` reduction (``size == 255`` and the masked
     sizes), so it moves no column through a clone, copy, concatenation or
@@ -1367,7 +1767,7 @@ def check_step_traffic(dev, cfg, gp, strict: bool = True) -> dict:
         out[backend] = dict(operators=len(called), device_ops=len(work),
                             bitwise_ops=len(bitwise), prng_calls=len(drawn),
                             whole_column=whole)
-        log(f"one eager {backend} step: {len(called)} operators, "
+        log(f"one eager {backend} step{tag}: {len(called)} operators, "
             f"{len(work)} of them neither an allocation nor a view, "
             f"{len(bitwise)} bitwise ops and shifts; {len(drawn)} calls to "
             f"core.prng; {len(whole)} return a whole column ({cfg.n_slots} "
@@ -1382,9 +1782,9 @@ def check_step_traffic(dev, cfg, gp, strict: bool = True) -> dict:
         raise AssertionError("the fused step called core.prng "
                              f"{out['fused']['prng_calls']} times: its draw "
                              "belongs in the eviction kernel")
-    log("the fused step: no whole-column clone, copy, concatenation or fill; "
-        "only the bytes_cached reduction reads the size column whole"
-        + ("; no core.prng call" if strict else ""))
+    log(f"the fused step{tag}: no whole-column clone, copy, concatenation "
+        "or fill; only the bytes_cached reduction reads the size column "
+        "whole" + ("; no core.prng call" if strict else ""))
     return out
 
 
@@ -1408,32 +1808,39 @@ PROFILE_GROUPS = (
 
 
 def profile_steps(dev, card: str, gp, trace, n_groups: int,
-                  out_dir: Path | None) -> None:
+                  out_dir: Path | None, cfg=None, tag: str = "") -> None:
     """Trace the first n_groups steps of the grouped run under each
     backend with torch.profiler; print where the device time goes (per
     step, and the busy share of the wall) and, given ``out_dir``, write
     the whole kernel table there.  The window includes ``execute()``'s
     copy of the carry into the step's graph and out again, once a
     segment; a second window of twice the steps, less the first, gives
-    the step alone."""
+    the step alone.  ``cfg``: the cache's config (default: phase 3's),
+    for phases 9 and 10 (``tag`` names them)."""
+    import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import CacheConfig, execute, make
 
     def first(k):
         return gp._replace(keys=gp.keys[:k], is_write=gp.is_write[:k],
-                           sizes=gp.sizes[:k], src_t=gp.src_t[:k])
+                           sizes=gp.sizes[:k], src_t=gp.src_t[:k],
+                           tenants=None if gp.tenants is None
+                           else gp.tenants[:k])
 
-    for backend in ("fused", "reference"):
+    if cfg is None:
         cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC,
-                          capacity=CAPACITY, backend=backend)
-        c = make(cfg, LANES, SEED, device=dev)
+                          capacity=CAPACITY)
+    for backend in ("fused", "reference"):
+        c = make(dataclasses.replace(cfg, backend=backend), LANES, SEED,
+                 device=dev)
         execute(c, trace, plan=first(n_groups))     # build + allocator warm
         cats = []
         for k in (n_groups, 2 * n_groups):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 r = execute(c, trace, plan=first(k))
-            cats.append(report_profile(prof, card, backend, k, r.wall_s,
+            cats.append(report_profile(prof, card, backend + tag, k,
+                                       r.wall_s,
                                        out_dir if k == n_groups else None))
         step = {kind: (t - cats[0].get(kind, 0.0)) / n_groups
                 for kind, t in cats[1].items()}
@@ -2056,7 +2463,8 @@ def main() -> int:
     ap.add_argument("--profile", type=int, default=0,
                     help="also trace this many grouped steps per backend "
                          "and twice as many (the difference is the step "
-                         "alone), one yi-9b prefill and 8 decode steps")
+                         "alone) of phases 3, 9 and 10, one yi-9b prefill "
+                         "and 8 decode steps")
     ap.add_argument("--step-only", action="store_true",
                     help="only plan phase 3's trace, count one eager step's "
                          "operators per backend and, with --profile, trace "
@@ -2082,7 +2490,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     runtime.lib()
     log(f"built {len(runtime.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2117,6 +2525,10 @@ def main() -> int:
     e2e["prefill_gemma_2b"] = run_prefill(dev, card, cfg, params, results,
                                           long_t=False)
     del params
+    torch.cuda.empty_cache()
+    prof_dir = Path(a.out).parent if a.out else None
+    e2e["tenants"] = run_tenants(dev, card, results, a.profile, prof_dir)
+    e2e["l0"] = run_l0(dev, card, results, a.profile, prof_dir)
 
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",
@@ -2136,7 +2548,9 @@ def main() -> int:
              "row_err_32k", "controls", "layer_row_err", "ms_pairs",
              "ms_one_slot", "ms_one_tile", "wrapper_bound_ms", "ms_65k",
              "bound_ms_65k", "wrapper_ms_65k", "wrapper_bound_ms_65k",
-             "launches_gemma_2b", "layer_row_err_gemma_2b",
+             "launches_gemma_2b", "layer_row_err_gemma_2b", "ms_tenant",
+             "plain_ms_tenant", "bound_ms_tenant", "ms_w128",
+             "launches_tenants", "launches_l0",
              *(f + k for k in ("_4k", "_gemma_4k") for f in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")))
     kernels = []
@@ -2158,6 +2572,7 @@ def main() -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(card=card, kernels=kernels, e2e=e2e),
                                   indent=1, default=float))
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

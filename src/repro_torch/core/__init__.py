@@ -10,12 +10,15 @@ from repro_torch.core.cache import (AccessResult, TraceResult, access,
 from repro_torch.core.execute import Cache, ExecResult, make
 from repro_torch.core.execute import execute as execute  # noqa: PLC0414
 from repro_torch.core.types import (CacheConfig, CacheState, ClientState,
-                                    ExecConfig, OpStats, hit_ratio,
-                                    init_cache, init_clients, init_stats)
+                                    ExecConfig, OpStats, byte_hit_ratio,
+                                    hit_ratio, init_cache, init_clients,
+                                    init_stats, split_tenant_budgets,
+                                    stats_delta, stats_sum)
 
 __all__ = [
     "AccessResult", "TraceResult", "access", "access_group", "make_cache",
     "Cache", "ExecResult", "execute", "make",
     "CacheConfig", "CacheState", "ClientState", "ExecConfig", "OpStats",
-    "hit_ratio", "init_cache", "init_clients", "init_stats",
+    "byte_hit_ratio", "hit_ratio", "init_cache", "init_clients",
+    "init_stats", "split_tenant_budgets", "stats_delta", "stats_sum",
 ]

@@ -34,9 +34,18 @@ Port notes:
   penalty total) are taken as sequential scans (``cumsum``), in request
   and lane order, as XLA's CPU scatter and reduce visit them; no float
   atomics, so the step is deterministic on the card.
-* ``n_tenants > 1``, ``l0_entries > 0``, ``sanitize=True`` and the DM
-  layer's ``shadow`` ops raise ``NotImplementedError``: they are later
-  items of the port's roadmap.
+* ``n_tenants > 1`` partitions the pool (DESIGN.md §11): per-tenant
+  [T, E] expert weights, tenant-scoped eviction quotas (the draw kernel
+  reads each op's (lane, tenant) cdf row and filters its sample), and the
+  budget gate.  ``tenant_bytes`` moves by the change at the slots the
+  step writes (the JAX package recomputes it from the whole table; the
+  two agree, integers being exact in any order).
+* ``l0_entries > 0`` runs the per-lane L0 near-cache (DESIGN.md §15) in
+  plain torch on both backends: the probe masks an L0-served GET to a
+  padded no-op before the remote path, and the bucket-version bump and
+  the one-per-lane fill follow the apply.
+* ``sanitize=True`` and the DM layer's ``shadow`` ops raise
+  ``NotImplementedError``: they are later items of the port's roadmap.
 """
 
 from __future__ import annotations
@@ -51,8 +60,8 @@ from repro_torch.core.fc_cache import fc_access, fc_access_group
 from repro_torch.core.hashing import bucket_of, hash_key
 from repro_torch.core.types import (SIZE_EMPTY, SIZE_HISTORY, CacheConfig,
                                     CacheState, ClientState, MDView, OpStats,
-                                    init_cache, init_clients, init_stats,
-                                    stats_add)
+                                    _weight_shape, init_cache, init_clients,
+                                    init_stats, stats_add)
 from repro_torch.core.u32 import M32
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -70,14 +79,6 @@ class AccessResult(NamedTuple):
 
 
 def _unsupported(cfg: CacheConfig, shadow) -> None:
-    if cfg.n_tenants > 1:
-        raise NotImplementedError(
-            "n_tenants > 1 (tenant quotas, budget gate, tenant-filtered "
-            "sampling) is ROADMAP Queue 1 item 10, slice D, not yet ported")
-    if cfg.l0_entries > 0:
-        raise NotImplementedError(
-            "l0_entries > 0 (the L0 near-cache) is ROADMAP Queue 1 item 11, "
-            "slice E, not yet ported")
     if cfg.sanitize:
         raise NotImplementedError(
             "sanitize=True (the invariant sanitizer) is ROADMAP Queue 1 "
@@ -188,9 +189,19 @@ def _first_winner(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return valid & _run_edges(torch.where(valid, x, -1))
 
 
-# The table columns the step writes (in place in access_group_).
+# The table columns the step writes (in place in access_group_), on every
+# config; a multi-tenant config's step also writes the slots' tenant
+# column, and an L0 config's the bucket versions (written_columns).
 WRITTEN = ("key", "key_hash", "size", "ptr", "insert_ts", "last_ts", "freq",
            "ext", "values")
+
+
+def written_columns(cfg: CacheConfig) -> tuple:
+    """The state columns ``cfg``'s step writes in place: ``WRITTEN``, and
+    ``tenant`` when ``n_tenants > 1``, ``bucket_ver`` when
+    ``l0_entries > 0``."""
+    return (WRITTEN + (("tenant",) if cfg.n_tenants > 1 else ())
+            + (("bucket_ver",) if cfg.l0_entries > 0 else ()))
 
 
 def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
@@ -199,7 +210,8 @@ def access_group(cfg: CacheConfig, state: CacheState, clients: ClientState,
     """One batched cache step over a [G, C] request group, functional:
     the caller's tensors stay as they are.  :func:`access_group_` on
     copies of the columns the step writes; the same arguments."""
-    state = state._replace(**{f: getattr(state, f).clone() for f in WRITTEN})
+    state = state._replace(**{f: getattr(state, f).clone()
+                              for f in written_columns(cfg)})
     return access_group_(cfg, state, clients, stats, keys, **kw)
 
 
@@ -213,16 +225,17 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                   shadow: torch.Tensor | None = None,
                   ) -> Tuple[CacheState, ClientState, OpStats, AccessResult]:
     """One batched cache step over a [G, C] request group, in place: the
-    table columns of ``state`` (``WRITTEN``) take the step's writes, and
-    the returned state holds those very tensors.  The caller owns them;
-    ``clients`` and ``stats`` are not written.
+    table columns of ``state`` (:func:`written_columns`) take the step's
+    writes, and the returned state holds those very tensors.  The caller
+    owns them; ``clients`` and ``stats`` are not written.
 
     Args:
       keys: u32[G, C]; 0 marks a padded no-op lane.
       is_write: bool[G, C] — SET ops.
       obj_size: u32[G, C] object size in 64B blocks (default 1).
       values: u32[G, C, W] payload written on insert/set.
-      tenant: u32[G, C] tenant ids (single-tenant: ignored).
+      tenant: u32[G, C] tenant ids in [0, n_tenants) (larger ids count as
+        the last tenant); ignored when ``n_tenants == 1``.
     """
     _unsupported(cfg, shadow)
     G, C = keys.shape
@@ -230,6 +243,9 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     E = cfg.n_experts
     K = cfg.n_samples
     A = cfg.assoc
+    Tn = cfg.n_tenants
+    multi = Tn > 1
+    l0 = cfg.l0_entries > 0
     names = cfg.experts
     adaptive = E > 1
     fused = cfg.backend == "fused"
@@ -254,10 +270,37 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     is_write = is_write.reshape(B)
     obj_size = torch.clamp(obj_size.reshape(B).to(I64), 1, SIZE_HISTORY - 1)
     values = values.reshape(B, cfg.value_words).to(I64).contiguous()
+    if multi or l0 or not fused:
+        lane_b = torch.arange(C, device=dev).repeat(G)        # [B]
+    if multi:
+        tenant_b = (torch.zeros(B, dtype=I64, device=dev) if tenant is None
+                    else torch.clamp(tenant.reshape(B).to(I64), max=Tn - 1))
+        # Each request's tenant as a one-hot row [B, T]: the per-tenant
+        # sums below are masked sums over it.
+        own = tenant_b[:, None] == torch.arange(Tn, device=dev)[None, :]
 
     clock = state.clock
     ts_round = (clock + torch.arange(G, device=dev)) & M32        # [G]
     ts_req = ts_round[:, None].expand(G, C).contiguous().reshape(B)  # [B]
+
+    # 1a. The L0 near-cache probe (DESIGN.md §15): a lane's valid entry
+    #     (its bucket's version token and the flush epoch current) serves
+    #     a plain GET, which then runs below as a padded no-op (key 0).
+    if l0:
+        ent_bkt = torch.clamp(clients.l0_bkt, 0, cfg.n_buckets - 1)
+        ent_present = clients.l0_key != 0                     # [C, L0]
+        ent_valid = (ent_present
+                     & (clients.l0_seen_epoch == state.l0_epoch)[:, None]
+                     & (clients.l0_tok == state.bucket_ver[ent_bkt]))
+        l0_stale = ent_present & ~ent_valid
+        l0_match = (ent_valid[lane_b]
+                    & (clients.l0_key[lane_b] == keys_b[:, None]))  # [B, L0]
+        l0_idx = _argmax(l0_match)                            # [B]
+        l0_hit = l0_match.any(dim=1) & op & ~is_write
+        l0_value = clients.l0_val[lane_b, l0_idx]             # [B, W]
+        l0_size = clients.l0_sz[lane_b, l0_idx]               # [B]
+        keys_b = torch.where(l0_hit, 0, keys_b)
+        op = keys_b != 0
 
     # 1. Bucket probe (+ the embedded-history match).  The fused probe
     #    also returns what the insert path (4) needs of the same bucket.
@@ -321,7 +364,9 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         hit_ext = prio.update_ext(state.ext[slot0], state.last_ts[slot0],
                                   state.freq[slot0], eff)
 
-    # 3. Regret collection + lazy expert-weight update (§4.3.2).
+    # 3. Regret collection + lazy expert-weight update (§4.3.2), in
+    #    [C, T, E] space: each request's penalty lands on its own tenant's
+    #    row (a single tenant: T = 1).
     hslot0 = torch.clamp(hslot, min=0)
     h_bmap = state.insert_ts[hslot0]                          # expert bitmap
     h_age_sel = _hist_age(state.hist_ctr, state.ptr[hslot0])
@@ -330,34 +375,47 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     bits = ((h_bmap[:, None] >> torch.arange(E, device=dev)[None, :])
             & 1).to(F32)
     pen_e = torch.where(regret[:, None], pen[:, None] * bits, 0.0)  # [B, E]
-    # Per-lane sums over the group's rounds, in round order.
-    pen_lane = _seqsum(pen_e.reshape(G, C, E))[:, None, :]   # [C, 1, E]
-    reg_lane = regret.reshape(G, C).sum(dim=0)[:, None]      # [C, 1]
+    # Per-(lane, tenant) sums over the group's rounds, in round order
+    # (another tenant's rows add an exact 0.0).
+    if multi:
+        pen_lane = _seqsum(torch.where(own[:, :, None], pen_e[:, None, :],
+                                       0.0).reshape(G, C, Tn, E))  # [C, T, E]
+        reg_lane = (own & regret[:, None]).reshape(G, C, Tn).sum(dim=0)
+        lw3, pacc3, pcnt2 = (clients.local_weights, clients.penalty_acc,
+                             clients.penalty_cnt)
+        w2 = state.weights                                    # [T, E]
+    else:
+        pen_lane = _seqsum(pen_e.reshape(G, C, E))[:, None, :]  # [C, 1, E]
+        reg_lane = regret.reshape(G, C).sum(dim=0)[:, None]  # [C, 1]
+        lw3, pacc3, pcnt2 = (clients.local_weights[:, None],
+                             clients.penalty_acc[:, None],
+                             clients.penalty_cnt[:, None])
+        w2 = state.weights[None]                              # [1, E]
 
     lam = cfg.learning_rate
-    local_w = clients.local_weights[:, None] * torch.exp(-lam * pen_lane)
-    pacc = clients.penalty_acc[:, None] + pen_lane
-    pcnt = clients.penalty_cnt[:, None] + reg_lane
+    local_w = lw3 * torch.exp(-lam * pen_lane)
+    pacc = pacc3 + pen_lane
+    pcnt = pcnt2 + reg_lane
     if cfg.use_lwu:
-        syncing = pcnt >= cfg.sync_period                    # [C, 1]
+        syncing = pcnt >= cfg.sync_period                    # [C, T]
     else:
         syncing = reg_lane > 0
-    tot_pen = _seqsum(torch.where(syncing[..., None], pacc, 0.0))  # [1, E]
-    gw = apply_penalties(state.weights[None], tot_pen, lam)   # [1, E]
+    tot_pen = _seqsum(torch.where(syncing[..., None], pacc, 0.0))  # [T, E]
+    gw = apply_penalties(w2, tot_pen, lam)                    # [T, E]
     local_w = torch.where(syncing[..., None], gw[None], local_w)
     local_w = torch.clamp(local_w, min=1e-4)
     pacc = torch.where(syncing[..., None], 0.0, pacc)
     pcnt = torch.where(syncing, 0, pcnt)
     n_sync = syncing.sum()
-    # Each lane's expert distribution; one threefry draw per request gives
-    # its expert choice and sampling offset: in the fused backend the
-    # eviction kernel draws both (5).
-    cdf = _expert_cdf(local_w[:, 0])                          # [C, E]
+    # Each (lane, tenant)'s expert distribution; one threefry draw per
+    # request gives its expert choice and sampling offset: in the fused
+    # backend the eviction kernel draws both (5).
+    cdf = _expert_cdf(local_w if multi else local_w[:, 0])   # [C, (T,) E]
     if not fused:
         rng_b = clients.rng.repeat(G, 1)                      # [B, 2]
         u2 = prng.uniform(prng.fold_in(rng_b, ts_req), 2)     # [B, 2]
-        lane_b = torch.arange(C, device=dev).repeat(G)        # [B]
-        e_choice = _choose_expert(cdf[lane_b], u2[:, 0])      # [B]
+        e_choice = _choose_expert(cdf[lane_b, tenant_b] if multi
+                                  else cdf[lane_b], u2[:, 0])  # [B]
 
     # 4. Inserts: read-through on miss, one per bucket per step.
     want_insert = miss & (is_write | insert_on_miss)
@@ -400,7 +458,27 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     nc = torch.clamp(n_charge, min=1)
     quota = torch.where(over <= 0, 0, torch.clamp((over + nc - 1) // nc,
                                                   min=1))
-    must_evict = chargers & (over > 0)
+    # Tenant-scoped budgets (§11): an over-budget tenant's chargers peel
+    # their ceil-share of the tenant's deficit from its own slots (the
+    # sample filter tfilt); the others share the pool's global quota.
+    if multi:
+        occ_t, bud_t = state.tenant_bytes, state.tenant_budget
+        charge_d = torch.where(consumes, obj_size, 0) + set_growth   # [B]
+        inc_t = torch.where(own, charge_d[:, None], 0).sum(dim=0)   # [T]
+        n_charge_t = (own & chargers[:, None]).sum(dim=0)           # [T]
+        over_t = occ_t + inc_t - bud_t
+        nc_t = torch.clamp(n_charge_t, min=1)
+        quota_t = torch.where(over_t <= 0, 0,
+                              torch.clamp((over_t + nc_t - 1) // nc_t, min=1))
+        scoped = chargers & (over_t[tenant_b] > 0)            # [B]
+        must_evict = scoped | (chargers & (over > 0))
+        quota_b = torch.where(scoped, quota_t[tenant_b], quota)  # [B]
+        tfilt = torch.where(scoped, tenant_b, -1)             # [B]
+        scope = dict(tenant=state.tenant, tfilt=tfilt)
+    else:
+        must_evict = chargers & (over > 0)
+        quota_b = quota
+        scope = {}
 
     W = cfg.sample_window or 4 * K
     if fused:
@@ -409,8 +487,9 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         victims_2d, cand_slot, e_choice, bmap_2d = (
             kops.ranked_eviction_draw_op(
                 state.size, state.insert_ts, state.last_ts, state.freq,
-                clients.rng, cdf, must_evict, quota, ts_req, window=W, k=K,
-                experts=names))                               # [B, K], [B, E]
+                clients.rng, cdf, must_evict, quota_b, ts_req, window=W, k=K,
+                experts=names, op_tenant=tenant_b if multi else None,
+                **scope))                                     # [B, K], [B, E]
         fb_obj_slot = _pick(facts.cand, e_choice)
     else:
         offs = torch.clamp((u2[:, 1] * n_slots).to(I64), max=n_slots - 1)
@@ -418,6 +497,10 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                 + torch.arange(W, device=dev)[None, :]) % n_slots  # [B, W]
         s_md = _md_view(state, samp, ts_req[:, None])
         s_elig = _is_live(state.size[samp])
+        if multi:
+            # A budget-scoped op samples only its own tenant's objects.
+            s_elig = s_elig & ((tfilt[:, None] < 0)
+                               | (state.tenant[samp] == tfilt[:, None]))
         s_live = s_elig & (torch.cumsum(s_elig.to(I64), dim=1) <= K)
         s_prio = prio.priorities(s_md, names)                 # [B, W, E]
         s_prio = torch.where(s_live[:, :, None], s_prio, _INF)
@@ -427,7 +510,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         prio_e = _take_expert(s_prio, e_choice)               # [B, W]
         s_blocks = torch.where(s_live, s_md.size, 0.0)
         cols = torch.arange(W, device=dev)[None, :]
-        quota_f = quota.to(F32)
+        quota_f = quota_b.to(F32)
         vs = []
         freed = torch.zeros((B,), dtype=F32, device=dev)
         for _ in range(K):
@@ -442,6 +525,33 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     ev_winner = _first_winner(victims, victims >= 0)
     n_evict = ev_winner.sum()
     evicting = must_evict & (victims_2d >= 0).any(dim=1)
+
+    # 5b. The tenant budget gate (§11): charges (insert sizes, SET byte
+    #     deltas) are admitted against each tenant's post-eviction
+    #     allowance as a round-ordered running sum; the excess inserts
+    #     and growing SETs are refused (insert_drops).
+    if multi:
+        v_idx = torch.clamp(victims, min=0)
+        v_own = state.tenant[v_idx][:, None] == torch.arange(
+            Tn, device=dev)[None, :]                          # [B*V, T]
+        freed_t = torch.where(v_own & ev_winner[:, None],
+                              state.size[v_idx][:, None], 0).sum(dim=0)
+        allow_t = bud_t - occ_t + freed_t                     # [T]
+        charge_seq = torch.where(ins_ok, obj_size, 0) + set_growth
+        # Each tenant's running charge in request order, scanned as [T, B]
+        # rows: CUDA's scan over the outer dim of [B, T] is one thread a
+        # column (~250 us a step at B = 2048, T = 3).
+        cum = torch.cumsum(torch.where(own.T, charge_seq[None, :], 0), dim=1)
+        cum_own = torch.gather(cum, 0, tenant_b[None, :])[0]  # [B]
+        cancel = (ins_ok | growing_set) & (cum_own > allow_t[tenant_b])
+        plain = plain & ~cancel
+        fallback_hist = fallback_hist & ~cancel
+        fallback_obj = fallback_obj & ~cancel
+        ins_ok = ins_ok & ~cancel
+        dropped = dropped | cancel
+        set_ok = hit & is_write & ~(growing_set & cancel)
+    else:
+        set_ok = hit & is_write
     ins_slot = torch.where(plain, free_slot,
                            torch.where(fallback_hist, fb_hist_slot,
                                        fb_obj_slot))
@@ -472,6 +582,23 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     n_hist = write_hist.sum()
 
     result_vals = state.values[slot0]
+    set_idx = torch.where(set_ok, slot, n_slots)
+    if multi:
+        # Every slot the apply writes, once each (a victim may be another
+        # op's insert target), with its step-entry tenant and live size:
+        # tenant_bytes moves by the written slots' change (integers, so
+        # exact in any order; no pass over the table).
+        w_idx = torch.cat([set_idx, torch.where(ins_ok, ins_slot, n_slots),
+                           torch.where(ev_winner, victims, n_slots)])
+        w_first = (w_idx < n_slots) & _run_edges(w_idx)
+        w_at = torch.clamp(w_idx, max=n_slots - 1)
+
+        def _live_bytes():
+            sz = state.size[w_at]
+            live_sz = torch.where(w_first & _is_live(sz), sz, 0)
+            return torch.where(state.tenant[w_at][:, None] == torch.arange(
+                Tn, device=dev)[None, :], live_sz[:, None], 0).sum(dim=0)
+        bytes_before = _live_bytes()                          # [T]
 
     # 6. Apply, in place and in the JAX package's order: the hit metadata,
     #    then one drop_scatter of three write groups: SET payloads and
@@ -494,12 +621,16 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                               (state.freq[torch.clamp(emit_slot, min=0)]
                                & M32,))
         write = kref.drop_scatter_groups_ref
-    set_idx = torch.where(hit & is_write, slot, n_slots)
+    # The insert group writes 10 columns with the tenant's (2 + 10 + 3 =
+    # 15 of drop_scatter's MAX_COLS = 16): one more column takes the last.
+    ins_cols = tuple(getattr(state, f) for f in WRITTEN)
+    ins_srcs = (keys_b, kh, obj_size, 0, ts_req, ts_req, 1,
+                prio.fresh_ext(ts_req, (B,)), values)
+    if multi:
+        ins_cols, ins_srcs = ins_cols + (state.tenant,), ins_srcs + (tenant_b,)
     write(((_lww_idx(set_idx, n_slots), (state.values, state.size),
             (values, obj_size)),
-           (ins_slot, tuple(getattr(state, f) for f in WRITTEN),
-            (keys_b, kh, obj_size, 0, ts_req, ts_req, 1,
-             prio.fresh_ext(ts_req, (B,)), values), ins_ok),
+           (ins_slot, ins_cols, ins_srcs, ins_ok),
            (victims, (state.size, state.ptr, state.insert_ts),
             ((write_hist, SIZE_HISTORY, SIZE_EMPTY), (write_hist, hist_ids, 0),
              bmap), ev_winner)))
@@ -510,15 +641,65 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     # slots hold size 0, so only history entries are masked.
     bytes_cached = torch.where(state.size == SIZE_HISTORY, 0,
                                state.size).sum()
+    tenant_bytes = (occ_t + _live_bytes() - bytes_before if multi
+                    else bytes_cached[None])
+
+    # 6b. L0 coherence tokens + fill (DESIGN.md §15): every bucket that
+    #     commits a SET, an insert or an eviction bumps its version once;
+    #     each lane fills from its last plain GET hit on an untouched
+    #     bucket (its step-entry content is the post-step content): same
+    #     key, else the first empty entry, else the local LRU entry.
+    if l0:
+        ver0_b = state.bucket_ver[bucket]                     # step-entry
+        t_idx = torch.cat([torch.where(set_ok | ins_ok, bucket, cfg.n_buckets),
+                           torch.where(ev_winner, victims // A,
+                                       cfg.n_buckets)])
+        t_ver = state.bucket_ver[torch.clamp(t_idx, max=cfg.n_buckets - 1)]
+        kref.drop_scatter_ref(t_idx, (state.bucket_ver,), ((t_ver + 1) & M32,))
+        untouched = state.bucket_ver[bucket] == ver0_b
+        fill_ok = hit & ~is_write & untouched                 # [B]
+        pos = torch.arange(B, device=dev)
+        last_fill = torch.where(fill_ok, pos, -1).reshape(G, C).amax(dim=0)
+        f_req = torch.clamp(last_fill, min=0)                 # [C] -> B idx
+        do_fill = last_fill >= 0
+        L0 = cfg.l0_entries
+        # Drop stale entries, then stamp each entry that served an L0 hit
+        # with its latest request's timestamp.
+        key1 = torch.where(l0_stale, 0, clients.l0_key)
+        last1 = torch.cat([clients.l0_last.reshape(-1),
+                           clients.l0_last.new_zeros(1)]).scatter_reduce(
+            0, torch.where(l0_hit, lane_b * L0 + l0_idx, C * L0), ts_req,
+            "amax")[:C * L0].reshape(C, L0)
+        fill_key = keys_b[f_req]
+        same = key1 == fill_key[:, None]                      # [C, L0]
+        empty = key1 == 0
+        pick = torch.where(same.any(dim=1), _argmax(same),
+                           torch.where(empty.any(dim=1), _argmax(empty),
+                                       last1.argmin(dim=1)))  # [C]
+        at = do_fill[:, None] & (torch.arange(L0, device=dev)[None, :]
+                                 == pick[:, None])            # [C, L0]
+        fill = lambda x, col: torch.where(
+            at.reshape(at.shape + (1,) * (col.dim() - 2)),
+            x.reshape((C, 1) + col.shape[2:]), col)
+        l0_upd = dict(
+            l0_key=fill(fill_key, key1),
+            l0_bkt=fill(bucket[f_req], clients.l0_bkt),
+            l0_tok=fill(ver0_b[f_req], clients.l0_tok),
+            l0_sz=fill(old_sz[f_req], clients.l0_sz),
+            l0_val=fill(result_vals[f_req], clients.l0_val),
+            l0_last=fill(ts_req[f_req], last1),
+            l0_seen_epoch=state.l0_epoch.repeat(C))
 
     new_state = state._replace(
         n_cached=n_cached, bytes_cached=bytes_cached,
         hist_ctr=(state.hist_ctr + n_hist) & M32,
-        clock=(clock + G) & M32, weights=gw[0], gds_L=gds_L,
-        tenant_bytes=bytes_cached[None])
-    new_clients = clients._replace(local_weights=local_w[:, 0],
-                                   penalty_acc=pacc[:, 0],
-                                   penalty_cnt=pcnt[:, 0])
+        clock=(clock + G) & M32, weights=gw if multi else gw[0], gds_L=gds_L,
+        tenant_bytes=tenant_bytes)
+    new_clients = clients._replace(
+        local_weights=local_w if multi else local_w[:, 0],
+        penalty_acc=pacc if multi else pacc[:, 0],
+        penalty_cnt=pcnt if multi else pcnt[:, 0],
+        **(l0_upd if l0 else {}))
 
     # 7. Remote-op accounting (the paper's cost model).
     n_op = op.sum()
@@ -552,12 +733,23 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                + ins_blocks * 64 + n_ins * SLOT_B
                + set_blocks * 64
                + n_write_hist * 16 + sep_hist * SLOT_B)
+    gets, hits, hit_bytes = n_op - n_set, n_hit, hit_blocks * 64
+    if l0:
+        # L0 hits are client-visible gets and hits that move no RDMA
+        # counter; they rejoin the caller's result.
+        n_l0_hit = l0_hit.sum()
+        gets, hits = gets + n_l0_hit, hits + n_l0_hit
+        hit_bytes = hit_bytes + torch.where(l0_hit, l0_size, 0).sum() * 64
+        stats = stats_add(stats, l0_hits=n_l0_hit,
+                          l0_invalidations=l0_stale.sum())
+        hit = hit | l0_hit
+        result_vals = torch.where(l0_hit[:, None], l0_value, result_vals)
     stats = stats_add(
         stats, rdma_read=reads, rdma_write=writes, rdma_cas=cas,
-        rdma_faa=faa, rpc=n_sync, gets=n_op - n_set, sets=n_set,
+        rdma_faa=faa, rpc=n_sync, gets=gets, sets=n_set,
         rdma_read_bytes=read_b, rdma_write_bytes=write_b,
-        hit_bytes=hit_blocks * 64, miss_bytes=miss_blocks * 64,
-        hits=n_hit, misses=n_miss, regrets=regret.sum(),
+        hit_bytes=hit_bytes, miss_bytes=miss_blocks * 64,
+        hits=hits, misses=n_miss, regrets=regret.sum(),
         evictions=n_evict, bucket_evictions=fallback_obj.sum(),
         insert_drops=dropped.sum(), fc_hits=n_fc_hit, fc_flushes=n_faa,
         weight_syncs=n_sync)
@@ -594,6 +786,7 @@ class TraceResult(NamedTuple):
     hits: torch.Tensor      # i64[R] per-round hit counts
     ops: torch.Tensor       # i64[R] per-round op counts
     weights: torch.Tensor   # f32[R, E] global weight trajectory
+    #                         ([R, T, E] when n_tenants > 1)
 
 
 def _leaves(tree) -> list:
@@ -731,21 +924,27 @@ def _run_trace_impl(cfg: CacheConfig, state: CacheState,
                     clients: ClientState, keys: torch.Tensor,
                     is_write: torch.Tensor | None = None,
                     obj_size: torch.Tensor | None = None,
-                    tenant: torch.Tensor | None = None) -> TraceResult:
-    """Run a [T, C] trace, one round per step."""
+                    tenant: torch.Tensor | None = None,
+                    by_lane: bool = False) -> TraceResult:
+    """Run a [T, C] trace, one round per step.  ``by_lane``: hits and
+    ops per round and lane ([T, C] bool) instead of per round."""
 
     def step(carry, xs):
         st, cl, sa = carry
         k, w, sz, tn = (x[None] for x in xs)
         st, cl, sa, res = access_group_(cfg, st, cl, sa, k, is_write=w,
                                         obj_size=sz, tenant=tn)
+        if by_lane:
+            return (st, cl, sa), (res.hit[0], k[0] != 0, st.weights)
         return (st, cl, sa), (res.hit.sum(), (k != 0).sum(), st.weights)
 
+    C = keys.shape[1]
     (state, clients, stats), ys = _scan(
         step, (state, clients, init_stats(keys.device)),
-        _trace_inputs(keys, is_write, obj_size, tenant), ("access", cfg))
+        _trace_inputs(keys, is_write, obj_size, tenant),
+        ("access", cfg, by_lane))
     if ys is None:
-        ys = _empty_ys(cfg, keys.device, ())
+        ys = _empty_ys(cfg, keys.device, (C,) if by_lane else ())
     return TraceResult(state, clients, stats, *ys)
 
 
@@ -753,10 +952,11 @@ def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
                             clients: ClientState, keys: torch.Tensor,
                             is_write: torch.Tensor | None = None,
                             obj_size: torch.Tensor | None = None,
-                            tenant: torch.Tensor | None = None
-                            ) -> TraceResult:
+                            tenant: torch.Tensor | None = None,
+                            by_lane: bool = False) -> TraceResult:
     """Run a planned [NG, G, C] grouped trace, one group per step.
-    Per-round hit/op counts ([NG*G]); weights repeat per round."""
+    Per-round hit/op counts ([NG*G]; ``by_lane``: [NG*G, C] bool);
+    weights repeat per round."""
     NG, G, C = keys.shape
 
     def step(carry, xs):
@@ -764,24 +964,27 @@ def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
         k, w, sz, tn = xs
         st, cl, sa, res = access_group_(cfg, st, cl, sa, k, is_write=w,
                                         obj_size=sz, tenant=tn)
+        if by_lane:
+            return (st, cl, sa), (res.hit, k != 0, st.weights)
         return (st, cl, sa), (res.hit.sum(dim=1), (k != 0).sum(dim=1),
                               st.weights)
 
     (state, clients, stats), ys = _scan(
         step, (state, clients, init_stats(keys.device)),
         _trace_inputs(keys, is_write, obj_size, tenant),
-        ("access_group", cfg))
+        ("access_group", cfg, by_lane))
+    lane = (C,) if by_lane else ()
     if ys is None:
-        ys = _empty_ys(cfg, keys.device, (G,))
+        ys = _empty_ys(cfg, keys.device, (G,) + lane)
     hits, ops, w = ys
-    return TraceResult(state, clients, stats, hits.reshape(-1),
-                       ops.reshape(-1), _repeat(w, G))
+    return TraceResult(state, clients, stats, hits.reshape((-1,) + lane),
+                       ops.reshape((-1,) + lane), _repeat(w, G))
 
 
 def _empty_ys(cfg: CacheConfig, dev, round_shape) -> tuple:
     return (torch.zeros((0,) + round_shape, dtype=I64, device=dev),
             torch.zeros((0,) + round_shape, dtype=I64, device=dev),
-            torch.zeros((0, cfg.n_experts), dtype=F32, device=dev))
+            torch.zeros((0,) + _weight_shape(cfg), dtype=F32, device=dev))
 
 
 def make_cache(cfg: CacheConfig, n_clients: int, seed: int = 0, device=None):

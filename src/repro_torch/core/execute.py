@@ -71,9 +71,10 @@ class ExecResult(NamedTuple):
     per-round counters, and per-segment (window) execution metrics."""
 
     cache: Cache
-    hits: np.ndarray           # i32[R] per executed round
+    hits: np.ndarray           # i32[R] per executed round ([R, C] by lane)
     ops: np.ndarray            # i32[R]
     weights: np.ndarray        # f32[R, E] expert-weight trajectory
+    #                            ([R, T, E] when n_tenants > 1)
     windows: Tuple[dict, ...]  # per-segment metrics: start/stop rows,
                                # width, steps, fill, wall_s, us_per_call
     plan_s: float              # host planning time (seconds)
@@ -162,7 +163,8 @@ def _sync(device: torch.device) -> None:
 
 def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
             is_write=None, sizes=None, tenants=None,
-            model: Optional[PlanCostModel] = None) -> ExecResult:
+            model: Optional[PlanCostModel] = None,
+            by_lane: bool = False) -> ExecResult:
     """Execute a [T, C] request trace against a cache, planned.
 
     Args:
@@ -175,6 +177,9 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
         config's ``backend`` field.
       is_write / sizes / tenants: optional [T, C] op arrays.
       model: optional :class:`PlanCostModel` shared across calls.
+      by_lane: ``hits``/``ops`` per executed round and lane ([R, C]), so
+        a caller can split them by the lanes' tenants (the JAX package's
+        ``execute`` has no such option; ``False`` gives its [R] counts).
 
     Returns an :class:`ExecResult`; ``hits``/``ops`` are per executed
     round, in the schedule's round order.
@@ -230,7 +235,8 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
         was_warm = warm_key in _WARM
         _sync(dev)
         t0 = time.perf_counter()
-        res: TraceResult = impl(run_cfg, state, clients, *args)
+        res: TraceResult = impl(run_cfg, state, clients, *args,
+                                by_lane=by_lane)
         _sync(dev)
         wall = time.perf_counter() - t0
         _WARM.add(warm_key)
@@ -250,8 +256,9 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
                           eff=rows / (n_steps * seg.width))
 
     new_cache = Cache(cache.cfg, state, clients, stats)
-    hits = np.concatenate(hits_parts) if hits_parts else np.zeros(0, np.int32)
-    ops = np.concatenate(ops_parts) if ops_parts else np.zeros(0, np.int32)
+    empty = np.zeros((0, C) if by_lane else 0, np.int32)
+    hits = np.concatenate(hits_parts) if hits_parts else empty
+    ops = np.concatenate(ops_parts) if ops_parts else empty
     weights = (np.concatenate(w_parts)
                if w_parts else np.zeros((0,), np.float32))
     return ExecResult(new_cache, hits, ops, weights, tuple(windows),

@@ -233,6 +233,18 @@ class MDView(NamedTuple):
     cost: torch.Tensor
 
 
+def split_tenant_budgets(budgets, n_shards: int) -> np.ndarray:
+    """Exact per-shard split of global tenant budgets: i32[n_shards, T]
+    whose column sums equal the budgets (remainder blocks to the lowest
+    shard ids), as the JAX package's ``split_tenant_budgets``."""
+    out = np.zeros((n_shards, len(budgets)), np.int32)
+    for t, b in enumerate(budgets):
+        base, rem = divmod(int(b), n_shards)
+        out[:, t] = base
+        out[:rem, t] += 1
+    return out
+
+
 def _weight_shape(cfg: CacheConfig) -> tuple:
     if cfg.n_tenants > 1:
         return (cfg.n_tenants, cfg.n_experts)
@@ -313,10 +325,30 @@ def stats_add(a: OpStats, **kw) -> OpStats:
     return a._replace(**{k: getattr(a, k) + v for k, v in kw.items()})
 
 
+def stats_sum(stats: OpStats) -> OpStats:
+    """Per-shard counter arrays reduced to scalars."""
+    return OpStats(*[f.sum() for f in stats])
+
+
+def stats_delta(new: OpStats, old: OpStats) -> OpStats:
+    """The counters' difference between two snapshots (a window's)."""
+    return OpStats(*[n - o for n, o in zip(new, old)])
+
+
 def hit_ratio(stats: OpStats) -> float:
     """Hits over executed ops (``gets + sets``), as the JAX package's
     canonical ``hit_ratio``.  A host read: call it outside the step."""
     return float(stats.hits) / max(float(stats.gets + stats.sets), 1.0)
+
+
+def byte_hit_ratio(stats: OpStats) -> float:
+    """Bytes served from the cache over bytes requested; 0 where a byte
+    counter has wrapped negative, as the JAX package's
+    ``byte_hit_ratio``.  A host read."""
+    hit_b, miss_b = float(stats.hit_bytes), float(stats.miss_bytes)
+    if hit_b < 0 or miss_b < 0:
+        return 0.0
+    return hit_b / max(hit_b + miss_b, 1.0)
 
 
 # ---------------------------------------------------------------------------

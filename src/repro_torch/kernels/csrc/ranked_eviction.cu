@@ -19,14 +19,21 @@
 // the key rng[b % lanes], fold_in of the op's timestamp, two uniforms;
 // the offset is min(trunc(u1 * f32(C)), C - 1) and the choice the count
 // of the lane's cdf entries below u0 (an f32 cdf that rounds below u
-// everywhere gives E: no victim).  It also writes the choice and each
-// victim entry's expert bitmap, sum_e (cand[e] == victim) << e |
-// 1 << choice (the JAX package's cache.py:604-610), -1 entries included.
+// everywhere gives E: no victim).  With per-op tenant ids (op_tenant,
+// multi-tenant caches) the cdf holds a row per (lane, tenant), [lanes, T,
+// E], and op b reads row (b % lanes, op_tenant[b]) (the JAX package's
+// cache.py:382; ids clamped into [0, T), as the step clamps them); the
+// tenant filter tfilt of the given form applies to both forms.  The draw
+// form also writes the choice and each victim entry's expert bitmap,
+// sum_e (cand[e] == victim) << e | 1 << choice (the JAX package's
+// cache.py:604-610), -1 entries included.
 //
 // Bound on the H100: bytes.  An op reads its window's size column until
 // the K-th live slot and three more words of each sampled slot (~2K
 // slots on a full table), ~40 B of per-op inputs (the draw form: the
-// lane's 16-B key and 4E-B cdf row, read by every op of the lane), and
+// lane's 16-B key and 4E-B cdf row, read by every op of the lane; with
+// a tenant filter, each scanned slot's tenant word too, and the scan
+// runs until K of the op's tenant's slots), and
 // writes (K + E) int64 outputs (the draw form 2K + E + 1): ~0.5 KB an
 // op, ~1 MB at B = 2048, ~0.3 us at 3.35 TB/s, far below one launch's
 // latency.  So the design counts dependent steps, not bytes.  One warp
@@ -78,10 +85,12 @@ struct EvictArgs {
   const int64_t* offsets;
   const int64_t* e_choice;
   // The draw form: the lanes' keys [lanes, 2] (u32 as int64) and expert
-  // cdf rows [lanes, E].
+  // cdf rows [lanes, E], or [lanes, T, E] with each op's tenant id.
   const int64_t* rng;
   const float* cdf;
   int lanes;
+  const int64_t* op_tenant;  // [B] or null
+  int T;
   const bool* must_evict;
   const int64_t* quota;
   int quota_stride;  // 1: per op; 0: one quota for all
@@ -127,10 +136,15 @@ __global__ void __launch_bounds__(WARPS * 32)
     const int ln = b % a.lanes;
     const uint32_t k0 = (uint32_t)a.rng[2 * ln];
     const uint32_t k1 = (uint32_t)a.rng[2 * ln + 1];
+    int64_t row = ln;
+    if (a.op_tenant) {
+      const int64_t t = a.op_tenant[b];
+      row = (int64_t)ln * a.T + (t < 0 ? 0 : t >= a.T ? a.T - 1 : t);
+    }
     float cdf[NE];
 #pragma unroll
     for (int e = 0; e < NE; ++e)
-      cdf[e] = e < E ? a.cdf[(int64_t)ln * E + e] : CUDART_INF_F;
+      cdf[e] = e < E ? a.cdf[row * E + e] : CUDART_INF_F;
     float u0, u1;
     draw_uniform2(k0, k1, (uint32_t)tsb, u0, u1);
     const int64_t at = (int64_t)__fmul_rn(u1, (float)C);  // truncates
@@ -312,7 +326,8 @@ int go(const EvictArgs& a, cudaStream_t stream) {
 template <bool DRAW>
 int dispatch(const EvictArgs& a, cudaStream_t stream) {
   if (a.B <= 0) return (int)cudaGetLastError();
-  if (a.E < 1 || a.E > MAX_EXPERTS || a.K < 1 || (DRAW && a.lanes < 1))
+  if (a.E < 1 || a.E > MAX_EXPERTS || a.K < 1 ||
+      (DRAW && (a.lanes < 1 || (a.op_tenant && a.T < 1))))
     return (int)cudaErrorInvalidValue;
   if (a.K > 32) {
     if (!a.wpos || !a.wmd) return (int)cudaErrorInvalidValue;
@@ -361,25 +376,33 @@ extern "C" int ranked_eviction_launch(
   return dispatch<false>(a, (cudaStream_t)stream);
 }
 
+// tenant and tfilt (the sample filter) may be null, and op_tenant (a
+// cdf row per (lane, tenant), T tenants) may be null: the untenanted form.
 extern "C" int ranked_eviction_draw_launch(
     const int64_t* size, const int64_t* ins_ts, const int64_t* last_ts,
-    const int64_t* freq, int64_t C, const int64_t* rng, int lanes,
-    const float* cdf, const bool* must_evict, const int64_t* quota,
-    int quota_stride, const int64_t* ts, int64_t codes, int B, int W, int K,
-    int E, int64_t* victims, int64_t* cand, int64_t* e_out, int64_t* bmap,
-    int* wpos, float* wmd, unsigned long long* launches, void* stream) {
+    const int64_t* freq, const int64_t* tenant, int64_t C, const int64_t* rng,
+    int lanes, const float* cdf, const int64_t* op_tenant, int T,
+    const bool* must_evict, const int64_t* quota, int quota_stride,
+    const int64_t* tfilt, const int64_t* ts, int64_t codes, int B, int W,
+    int K, int E, int64_t* victims, int64_t* cand, int64_t* e_out,
+    int64_t* bmap, int* wpos, float* wmd, unsigned long long* launches,
+    void* stream) {
   EvictArgs a{};
   a.size = size;
   a.ins_ts = ins_ts;
   a.last_ts = last_ts;
   a.freq = freq;
+  a.tenant = tenant;
   a.C = C;
   a.rng = rng;
   a.lanes = lanes;
   a.cdf = cdf;
+  a.op_tenant = op_tenant;
+  a.T = T;
   a.must_evict = must_evict;
   a.quota = quota;
   a.quota_stride = quota_stride;
+  a.tfilt = tfilt;
   a.ts = ts;
   a.codes = codes;
   a.B = B;

@@ -280,16 +280,20 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
 
 def ranked_eviction_draw_op(size, insert_ts, last_ts, freq, rng, cdf,
                             must_evict, quota, ts, *, window: int, k: int,
-                            experts):
+                            experts, tenant=None, tfilt=None, op_tenant=None):
     """:func:`ranked_eviction_op` that draws each op's window offset and
     expert choice itself, as the cache step does: op b's key is
     ``rng[b % lanes]`` (``ClientState.rng``, [lanes, 2] u32), folded with
     its timestamp ``ts[b]`` into two uniforms; the offset is the second
     scaled to the table, the choice the number of the lane's ``cdf``
-    entries ([lanes, E] f32) below the first (E takes no victim).
-    Returns victims i64[B, k], cand i64[B, E], e_choice i64[B] and each
-    victim entry's expert bitmap i64[B, k] (the candidates it equals, and
-    the chosen expert).  One launch, counted as ``ranked_eviction``."""
+    entries ([lanes, E] f32) below the first (E takes no victim).  With
+    ``op_tenant`` i64[B] (each op's tenant id, clamped into [0, T)) the
+    cdf is [lanes, T, E] and op b reads row ``(b % lanes,
+    op_tenant[b])``; ``tenant`` [C] with ``tfilt`` i64[B] scopes an op's
+    sample, as in :func:`ranked_eviction_op`.  Returns victims i64[B, k],
+    cand i64[B, E], e_choice i64[B] and each victim entry's expert bitmap
+    i64[B, k] (the candidates it equals, and the chosen expert).  One
+    launch, counted as ``ranked_eviction``."""
     dev = ts.device
     n, B = size.shape[0], ts.shape[0]
     experts = _eviction_experts("ranked_eviction", experts)
@@ -297,17 +301,29 @@ def ranked_eviction_draw_op(size, insert_ts, last_ts, freq, rng, cdf,
     lanes = rng.shape[0] if rng.dim() else 0
     if lanes == 0:
         raise ValueError("ranked_eviction: rng needs at least one lane")
-    _check("ranked_eviction", dev, size=(size, I64, (n,)),
-           insert_ts=(insert_ts, I64, (n,)), last_ts=(last_ts, I64, (n,)),
-           freq=(freq, I64, (n,)), rng=(rng, I64, (lanes, 2)),
-           cdf=(cdf, F32, (lanes, len(experts))),
-           must_evict=(must_evict, BOOL, (B,)),
-           quota=(quota, I64, (B,) if quota.dim() else ()),
-           ts=(ts, I64, (B,)))
+    E = len(experts)
+    spec = dict(size=(size, I64, (n,)), insert_ts=(insert_ts, I64, (n,)),
+                last_ts=(last_ts, I64, (n,)), freq=(freq, I64, (n,)),
+                rng=(rng, I64, (lanes, 2)),
+                cdf=(cdf, F32, (lanes, E) if op_tenant is None
+                     else (lanes, None, E)),
+                must_evict=(must_evict, BOOL, (B,)),
+                quota=(quota, I64, (B,) if quota.dim() else ()),
+                ts=(ts, I64, (B,)))
+    if op_tenant is not None:
+        spec["op_tenant"] = (op_tenant, I64, (B,))
+        if cdf.dim() == 3 and cdf.shape[1] == 0:
+            raise ValueError("ranked_eviction: cdf needs at least one tenant")
+    if (tenant is None) != (tfilt is None):
+        raise ValueError("ranked_eviction: tenant and tfilt go together")
+    if tenant is not None:
+        spec.update(tenant=(tenant, I64, (n,)), tfilt=(tfilt, I64, (B,)))
+    _check("ranked_eviction", dev, **spec)
     args = (size, insert_ts, last_ts, freq, rng, cdf, must_evict, quota, ts)
     return _dispatch("ranked_eviction", dev, ranked_eviction_draw,
                      ref.ranked_eviction_draw_ref, *args, window=window, k=k,
-                     experts=experts)
+                     experts=experts, tenant=tenant, tfilt=tfilt,
+                     op_tenant=op_tenant)
 
 
 def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,

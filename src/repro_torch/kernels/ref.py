@@ -334,34 +334,43 @@ def ranked_eviction_ref(size, insert_ts, last_ts, freq, offsets, e_choice,
     return victims, cand
 
 
-def eviction_draw_ref(rng, cdf, ts, n_slots: int):
+def eviction_draw_ref(rng, cdf, ts, n_slots: int, op_tenant=None):
     """The cache step's draw for op b: the key ``rng[b % lanes]`` ([lanes,
     2] u32), folded with the op's timestamp ``ts[b]``, gives two uniforms
     (``prng.fold_in``, ``prng.uniform``); the window offset is
     ``min(trunc(u1 * n_slots), n_slots - 1)`` in f32, and the expert
     choice the number of the lane's ``cdf`` entries ([lanes, E] f32) below
-    u0 (E where all are).  Returns (offsets i64[B], e_choice i64[B])."""
+    u0 (E where all are).  Given each op's tenant id ``op_tenant`` i64[B]
+    (clamped into [0, T)), ``cdf`` is [lanes, T, E] and op b reads row
+    ``(b % lanes, op_tenant[b])``.  Returns (offsets i64[B], e_choice
+    i64[B])."""
     lane = torch.arange(ts.shape[0], device=ts.device) % rng.shape[0]
     u2 = prng.uniform(prng.fold_in(rng[lane], ts), 2)
     offsets = torch.clamp((u2[:, 1] * n_slots).to(torch.int64),
                           max=n_slots - 1)
-    return offsets, (cdf[lane] < u2[:, :1]).sum(dim=-1)
+    row = (cdf[lane] if op_tenant is None
+           else cdf[lane, torch.clamp(op_tenant, 0, cdf.shape[1] - 1)])
+    return offsets, (row < u2[:, :1]).sum(dim=-1)
 
 
 def ranked_eviction_draw_ref(size, insert_ts, last_ts, freq, rng, cdf,
                              must_evict, quota, ts, *, window: int, k: int,
-                             experts):
-    """:func:`ranked_eviction_ref` at the offsets and expert choices of
-    :func:`eviction_draw_ref`, with each victim entry's expert bitmap:
-    ``sum_e (cand[b, e] == victims[b, j]) << e | 1 << e_choice[b]``, -1
-    entries included (the JAX package's ``cache.py:604-610``).
+                             experts, tenant=None, tfilt=None,
+                             op_tenant=None):
+    """:func:`ranked_eviction_ref` (with its tenant filter ``tenant``,
+    ``tfilt``) at the offsets and expert choices of
+    :func:`eviction_draw_ref` (with ``op_tenant``), with each victim
+    entry's expert bitmap: ``sum_e (cand[b, e] == victims[b, j]) << e |
+    1 << e_choice[b]``, -1 entries included (the JAX package's
+    ``cache.py:604-610``).
 
     Returns victims i64[B, k], cand i64[B, E], e_choice i64[B] and bmap
     i64[B, k]."""
-    offsets, e_choice = eviction_draw_ref(rng, cdf, ts, size.shape[0])
+    offsets, e_choice = eviction_draw_ref(rng, cdf, ts, size.shape[0],
+                                          op_tenant)
     victims, cand = ranked_eviction_ref(
         size, insert_ts, last_ts, freq, offsets, e_choice, must_evict, quota,
-        ts, window=window, k=k, experts=experts)
+        ts, window=window, k=k, experts=experts, tenant=tenant, tfilt=tfilt)
     shift = torch.arange(len(experts), device=ts.device)
     bmap = (((cand[:, None, :] == victims[:, :, None]).to(torch.int64)
              << shift).sum(dim=-1) | (1 << e_choice)[:, None])

@@ -49,8 +49,9 @@ SIGNATURES = {
     "hit_metadata_update_launch": [P, P, P, P, P, I, P, P, I, P, P, P, P, P],
     "ranked_eviction_launch": [P, P, P, P, P, L, P, P, P, P, I, P, P, L, I, I,
                                I, I, P, P, P, P, P, P],
-    "ranked_eviction_draw_launch": [P, P, P, P, L, P, I, P, P, P, I, P, L, I,
-                                    I, I, I, P, P, P, P, P, P, P, P],
+    "ranked_eviction_draw_launch": [P, P, P, P, P, L, P, I, P, P, I, P, P, I,
+                                    P, P, L, I, I, I, I, P, P, P, P, P, P,
+                                    P, P],
     "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L,
                                L, L, L, L, L, P, P],
     "sampled_eviction_launch": [P, P, P, P, L, P, P, P, F, L, I, I, I, I, P, P,

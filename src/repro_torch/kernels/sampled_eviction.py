@@ -85,9 +85,10 @@ def ranked_eviction(size, insert_ts, last_ts, freq, offsets, e_choice,
 
 def ranked_eviction_draw(size, insert_ts, last_ts, freq, rng, cdf,
                          must_evict, quota, ts, *, window: int, k: int,
-                         experts):
+                         experts, tenant=None, tfilt=None, op_tenant=None):
     """Returns victims i64[B, k], cand i64[B, E], e_choice i64[B] and the
-    victims' expert bitmaps i64[B, k]; counted as ``ranked_eviction``."""
+    victims' expert bitmaps i64[B, k]; counted as ``ranked_eviction``.
+    ``op_tenant`` i64[B] picks each op's row of a [lanes, T, E] cdf."""
     B = ts.shape[0]
     E = len(experts)
     dev = ts.device
@@ -96,14 +97,17 @@ def ranked_eviction_draw(size, insert_ts, last_ts, freq, rng, cdf,
     cand = torch.empty((B, E), dtype=torch.int64, device=dev)
     e_choice = torch.empty(B, dtype=torch.int64, device=dev)
     wpos, wmd = _scratch(B, k, 5, dev)
+    filt = tenant is not None and tfilt is not None
     err = runtime.lib().ranked_eviction_draw_launch(
         size.data_ptr(), insert_ts.data_ptr(), last_ts.data_ptr(),
-        freq.data_ptr(), size.shape[0], rng.data_ptr(), rng.shape[0],
-        cdf.data_ptr(), must_evict.data_ptr(), quota.data_ptr(),
-        1 if quota.dim() else 0, ts.data_ptr(), packed_codes(experts), B,
-        window, k, E, victims.data_ptr(), cand.data_ptr(),
-        e_choice.data_ptr(), bmap.data_ptr(), _ptr(wpos), _ptr(wmd),
-        runtime.counter("ranked_eviction", dev),
+        freq.data_ptr(), tenant.data_ptr() if filt else None, size.shape[0],
+        rng.data_ptr(), rng.shape[0], cdf.data_ptr(), _ptr(op_tenant),
+        cdf.shape[1] if op_tenant is not None else 1, must_evict.data_ptr(),
+        quota.data_ptr(), 1 if quota.dim() else 0,
+        tfilt.data_ptr() if filt else None, ts.data_ptr(),
+        packed_codes(experts), B, window, k, E, victims.data_ptr(),
+        cand.data_ptr(), e_choice.data_ptr(), bmap.data_ptr(), _ptr(wpos),
+        _ptr(wmd), runtime.counter("ranked_eviction", dev),
         torch.cuda.current_stream(dev).cuda_stream)
     runtime.check(err, "ranked_eviction")
     return victims, cand, e_choice, bmap

@@ -59,34 +59,45 @@ def _trace(workload, n=1200, seed=3):
     return j_gen.interleave(keys, C, wr)
 
 
-def _assert_tree(got: dict, want, what: str):
+# f32 columns that compound the exp/pow rounding of every lazy weight sync
+# (XLA and PyTorch differ in the last place a call): held to 16 ulp per
+# step, as tests/test_torch_cuda.py holds them; ext and gds_L to 4.
+_COMPOUNDED = ("weights", "local_weights", "penalty_acc")
+
+
+def _assert_tree(got: dict, want, what: str, weight_ulp: int = 4):
     for f in want._fields:
         w = np.asarray(getattr(want, f))
         g = got[f]
         assert g.shape == w.shape, (what, f)
         if w.dtype.kind == "f":
             try:
-                np.testing.assert_array_max_ulp(g, w, maxulp=4)
+                np.testing.assert_array_max_ulp(
+                    g, w, maxulp=weight_ulp if f in _COMPOUNDED else 4)
             except AssertionError as e:
                 raise AssertionError(f"{what}.{f}: {e}") from None
         else:
             assert np.array_equal(g, w.astype(g.dtype)), (what, f)
 
 
-def _assert_same(t_res, j_res):
+def _assert_same(t_res, j_res, weight_ulp: int = 4):
+    """``weight_ulp`` bounds the f32 columns that compound every weight
+    sync's ``exp`` (``_COMPOUNDED`` and the weight trajectory); ext and
+    gds_L are held to 4 ulp."""
     assert np.array_equal(t_res.hits, np.asarray(j_res.hits))
     assert np.array_equal(t_res.ops, np.asarray(j_res.ops))
     np.testing.assert_array_max_ulp(t_res.weights, np.asarray(j_res.weights),
-                                    maxulp=4)
-    _assert_tree(t_types.state_to_numpy(t_res.state), j_res.state, "state")
-    _assert_tree(t_types.clients_to_numpy(t_res.clients), j_res.clients,
-                 "clients")
-    _assert_tree(t_types.stats_to_numpy(t_res.stats), j_res.stats, "stats")
+                                    maxulp=weight_ulp)
+    for part, conv in (("state", t_types.state_to_numpy),
+                       ("clients", t_types.clients_to_numpy),
+                       ("stats", t_types.stats_to_numpy)):
+        _assert_tree(conv(getattr(t_res, part)), getattr(j_res, part), part,
+                     weight_ulp)
 
 
 @pytest.mark.parametrize("backend", ["reference", "fused"])
 @pytest.mark.parametrize("plan", [None, "strict8"])
-@pytest.mark.parametrize("workload", ["A", "C"])
+@pytest.mark.parametrize("workload", ["A", "B", "C", "D"])
 def test_execute_matches_jax(workload, plan, backend):
     cfg_j, cfg_t = _cfgs(backend)
     keys, wr = _trace(workload)
@@ -101,7 +112,10 @@ def test_execute_matches_jax(workload, plan, backend):
     jr = j_execute(j_make(cfg_j, C, 0), keys, plan=jp, is_write=wr)
     tr = t_execute(t_make(cfg_t, C, 0, device="cpu"), keys, plan=tp,
                    is_write=wr)
-    _assert_same(tr, jr)
+    # YCSB A and C hold the compounded weights within 4 ulp; B and D
+    # compound more syncs' exp rounding (D's reference backend drifts 1
+    # ulp per few syncs to 5-6), held to the 16 ulp of ROADMAP Queue 3.
+    _assert_same(tr, jr, weight_ulp=4 if workload in ("A", "C") else 16)
     assert int(tr.stats.evictions) > 0 and int(tr.stats.weight_syncs) > 0
     assert int(tr.stats.regrets) > 0 and int(tr.stats.fc_flushes) > 0
 
@@ -198,10 +212,6 @@ def _same_snapshots(x, y) -> bool:
     return all(np.array_equal(a[f], b[f]) for a, b in zip(x, y) for f in a)
 
 
-# f32 columns that compound the exp/pow rounding of every lazy weight sync
-# (XLA and PyTorch differ in the last place a call): held to 16 ulp per
-# step, as tests/test_torch_cuda.py holds them; ext and gds_L to 4.
-_COMPOUNDED = ("weights", "local_weights", "penalty_acc")
 
 
 @pytest.mark.parametrize("backend", ["reference", "fused"])
@@ -289,12 +299,62 @@ def test_scan_and_execute_leave_the_callers_state_untouched():
 
 
 def test_unported_options_raise():
+    """The sanitizer and the DM layer's replica (shadow) ops are later
+    items of the port; each raises, naming its ROADMAP item."""
     keys = torch.ones((1, C), dtype=torch.int64)
-    for kw in (dict(n_tenants=2), dict(l0_entries=4), dict(sanitize=True)):
+    for kw, step_kw in ((dict(sanitize=True), {}),
+                        ({}, dict(shadow=torch.zeros((1, C),
+                                                     dtype=torch.bool)))):
         cfg = t_types.CacheConfig(n_buckets=64, assoc=4, capacity=96, **kw)
         st, cl, sa = t_cache.make_cache(cfg, C, 0, "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_cache.access_group(cfg, st, cl, sa, keys)
+            t_cache.access_group(cfg, st, cl, sa, keys, **step_kw)
+
+
+def _stats_pair(seed: int, shape=()):
+    """One OpStats in both packages from the same seeded counters."""
+    rng = np.random.default_rng(seed)
+    vals = [rng.integers(0, 10_000, shape) for _ in t_types.OpStats._fields]
+    return (j_types.OpStats(*[jnp.asarray(v, jnp.int32) for v in vals]),
+            t_types.OpStats(*[torch.from_numpy(np.asarray(v, np.int64))
+                              for v in vals]))
+
+
+def test_stats_sum_and_delta_match_jax():
+    """``stats_sum`` reduces per-shard counters [S] to scalars and
+    ``stats_delta`` takes two snapshots' difference, as the JAX
+    package's; ``byte_hit_ratio`` on the results agrees too."""
+    j1, t1 = _stats_pair(1, (4,))
+    j2, t2 = _stats_pair(2, (4,))
+    js, ts = j_types.stats_sum(j1), t_types.stats_sum(t1)
+    jd = j_types.stats_delta(j_types.stats_sum(j2), js)
+    td = t_types.stats_delta(t_types.stats_sum(t2), ts)
+    for want, got in ((js, ts), (jd, td)):
+        for f in t_types.OpStats._fields:
+            assert getattr(got, f).shape == ()
+            assert int(getattr(got, f)) == int(getattr(want, f)), f
+    assert t_types.byte_hit_ratio(ts) == j_types.byte_hit_ratio(js)
+
+
+def test_byte_hit_ratio_matches_jax():
+    """Bytes served over bytes requested on a sized trace through both
+    ``execute()``s, and the guards: no traffic gives 0, and a counter
+    that wrapped negative gives 0."""
+    keys, sizes = t_gen.sized_zipfian(8 * 300, 500, seed=4, max_blocks=8)
+    keys, sizes = keys.reshape(-1, 8), sizes.reshape(-1, 8)
+    cfg_j, cfg_t = _cfgs("reference")
+    jr = j_execute(j_make(cfg_j, C, 0), keys, plan=None, sizes=sizes)
+    tr = t_execute(t_make(cfg_t, C, 0, device="cpu"), keys, plan=None,
+                   sizes=sizes)
+    got = t_types.byte_hit_ratio(tr.stats)
+    assert got == j_types.byte_hit_ratio(jr.stats)
+    assert 0.0 < got < t_types.hit_ratio(tr.stats) < 1.0  # big keys miss
+    _, zero = _stats_pair(3)
+    zero = zero._replace(hit_bytes=torch.tensor(0), miss_bytes=torch.tensor(0))
+    assert t_types.byte_hit_ratio(zero) == 0.0
+    wrapped = zero._replace(hit_bytes=torch.tensor(-5),
+                            miss_bytes=torch.tensor(10))
+    assert t_types.byte_hit_ratio(wrapped) == 0.0
 
 
 def test_make_without_a_device_needs_a_card():

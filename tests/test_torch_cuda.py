@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
-whole traces on the card against the same traces on the CPU, and the
-LM prefill forward and serving engine on the card against the CPU.
+whole traces on the card against the same traces on the CPU (single-
+pool, multi-tenant and with the L0 tier), and the LM prefill forward and
+serving engine on the card against the CPU.
 
 Every test here needs a CUDA device; the ``cuda`` fixture skips it
 elsewhere.  Run them on the card with
@@ -468,6 +469,56 @@ def test_eviction_kernels_match_plain_versions_at_every_expert_count(
         assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 2048])
+@pytest.mark.parametrize("K", [5, 33, 64])
+def test_tenant_draw_form_matches_plain_version_on_the_card(cuda, K, B):
+    """The draw form's tenant case (the multi-tenant step's): a tenant
+    column over 4 tenants, a filter of -1 and tenant ids, each op's
+    tenant picking its (lane, tenant) cdf row of [64, 4, E]; bit-equal to
+    the plain version, filtered ops claim only their tenant's slots, and
+    with one tenant it equals the untenanted form."""
+    rng = np.random.default_rng(7000 + 100 * K + B)
+    n, W, lanes, Tn = 4000, max(20, 2 * K), 64, 4
+    experts = ("lru", "lfu", "hyperbolic")
+    size = _t(rng.choice([0, 1, 2, 3, 8, 255], n), cuda)
+    last = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    freq = _t(rng.integers(0, 5, n), cuda)
+    ins = _t(rng.integers(0, 999, n), cuda)
+    tenant = _t(rng.integers(0, Tn, n), cuda)
+    w = torch.from_numpy(rng.random((lanes, Tn, 3)).astype(np.float32)
+                         + 1e-4)
+    w[::7, 1] = 1e-32
+    cdf = t_cache._expert_cdf(w).to(cuda)
+    keys = _t(rng.integers(0, 2**32, (lanes, 2), dtype=np.uint64), cuda)
+    ts = _t(1000 + np.arange(B) // lanes, cuda)
+    op_t = rng.integers(0, Tn, B)
+    op_tenant = _t(op_t, cuda)
+    tfilt = _t(np.where(rng.random(B) < 0.5, -1, op_t), cuda)
+    must = torch.rand(B, device=cuda) < 0.8
+    quota = _t(rng.integers(0, 4 * K, B), cuda)
+    args = (size, ins, last, freq, keys, cdf, must, quota, ts)
+    kw = dict(window=W, k=K, experts=experts, tenant=tenant, tfilt=tfilt,
+              op_tenant=op_tenant)
+    g = ops.ranked_eviction_draw_op(*args, **kw)
+    want = ref.ranked_eviction_draw_ref(*args, **kw)
+    for x, y in zip(g, want):
+        assert torch.equal(x, y)
+    v, tf = g[0].cpu().numpy(), tfilt.cpu().numpy()
+    ten = tenant.cpu().numpy()
+    for b in np.nonzero(tf >= 0)[0]:
+        assert (ten[v[b][v[b] >= 0]] == tf[b]).all()
+    assert B < 63 or int((g[0] >= 0).sum()) > 0
+    base = dict(window=W, k=K, experts=experts)
+    one = ops.ranked_eviction_draw_op(*args[:5], cdf[:, 0].contiguous(),
+                                      *args[6:], **base)
+    as_t = ops.ranked_eviction_draw_op(*args[:5], cdf[:, :1].contiguous(),
+                                       *args[6:], **base,
+                                       op_tenant=torch.zeros_like(op_tenant))
+    for x, y in zip(one, as_t):
+        assert torch.equal(x, y)
+
+
 def _ycsb(workload, n, n_keys, seed):
     keys, wr = gen.ycsb(workload, n, n_keys=n_keys, seed=seed)
     return keys, C, wr
@@ -657,6 +708,112 @@ def test_fused_and_reference_agree_over_hundreds_of_steps(cuda):
         for f in x:
             assert x[f].tobytes() == y[f].tobytes(), (part, f)
     assert a.weights.tobytes() == b.weights.tobytes()
+
+
+TENANT_SPECS = (dict(kind="zipf", n_keys=1_000, theta=0.9, lanes=2),
+                dict(kind="scan", hot_keys=800, scan_len=300, lanes=2),
+                dict(kind="flash", hot_keys=2_000, max_blocks=8, lanes=4))
+
+
+def _on_card_and_cpu(cuda, cfg, keys, **kw):
+    """A grouped segment then a sequential one of ``keys`` on the CPU and
+    on the card (graph-replayed), under both backends on the card: the
+    four runs' results and the card's launch counts."""
+    half = keys.shape[0] // 2
+    split = lambda x: (None, None) if x is None else (x[:half], x[half:])
+    wr, sz, tn = (split(kw.get(k)) for k in ("is_write", "sizes", "tenants"))
+    gp = plan.pack_rows(keys[:half], cfg.n_buckets, 8, is_write=wr[0],
+                        sizes=sz[0], tenants=tn[0])
+    runs = {}
+    for dev, backend in (("cpu", "fused"), (cuda, "fused"),
+                         (cuda, "reference")):
+        c = dataclasses.replace(cfg, backend=backend)
+        ops.reset_launches()
+        r = execute(make(c, C, 0, device=dev), keys[:half], plan=gp,
+                    is_write=wr[0], sizes=sz[0], tenants=tn[0])
+        r2 = execute(r.cache, keys[half:], plan=None, is_write=wr[1],
+                     sizes=sz[1], tenants=tn[1])
+        runs[(str(dev), backend)] = (r, r2, ops.launches())
+    return runs, gp
+
+
+@pytest.mark.cuda
+def test_multi_tenant_trace_on_the_card_matches_the_cpu(cuda):
+    """Three tenants of tenant_mix (a flash crowd of objects up to 8
+    blocks) graph-replayed on the card: equal to the CPU run, fused equal
+    to reference, every kernel launched once a step, no tenant above its
+    budget and ``tenant_bytes`` equal to the table's live sizes."""
+    keys, ten, sizes = gen.tenant_mix(C * 300, C, TENANT_SPECS, seed=5)
+    cfg = CacheConfig(n_buckets=96, assoc=8, capacity=384, n_tenants=3,
+                      sample_window=64, sync_period=10)
+    runs, gp = _on_card_and_cpu(cuda, cfg, keys, sizes=sizes, tenants=ten)
+    cpu, card, refr = (runs[k] for k in (("cpu", "fused"),
+                                         (str(cuda), "fused"),
+                                         (str(cuda), "reference")))
+    for a, b in ((cpu, card), (card, refr)):
+        _same(a[0], b[0])
+        _same(a[1], b[1])
+    steps = 2 + gp.n_groups + (keys.shape[0] - keys.shape[0] // 2)
+    assert card[2] == {k: steps * CACHE_KERNELS.get(k, 0) for k in card[2]}
+    st = card[1].state
+    live = (st.size != 0) & (st.size != 255)
+    occ = [int(st.size[live & (st.tenant == t)].sum()) for t in range(3)]
+    assert st.tenant_bytes.tolist() == occ
+    assert bool((st.tenant_bytes <= st.tenant_budget).all())
+    assert int(card[1].stats.evictions) > 0
+    assert card[1].weights.shape[1:] == (3, 2)
+
+
+@pytest.mark.cuda
+def test_l0_trace_on_the_card_matches_the_cpu(cuda):
+    """The L0 tier graph-replayed on the card (the seven L0 client arrays
+    ride in the captured step's carry, ``bucket_ver`` is written in
+    place): equal to the CPU run, fused equal to reference, L0 hits and
+    invalidations both seen."""
+    keys, wr = gen.interleave(*_ycsb("B", 4800, 300, 6))
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, sync_period=4,
+                      l0_entries=8)
+    runs, gp = _on_card_and_cpu(cuda, cfg, keys, is_write=wr)
+    cpu, card, refr = (runs[k] for k in (("cpu", "fused"),
+                                         (str(cuda), "fused"),
+                                         (str(cuda), "reference")))
+    for a, b in ((cpu, card), (card, refr)):
+        _same(a[0], b[0])
+        _same(a[1], b[1])
+    st = card[1].stats
+    assert int(st.l0_hits) > 0 and int(st.l0_invalidations) > 0
+    assert int(card[1].state.bucket_ver.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_the_tenant_and_l0_step_returns_no_whole_column(cuda):
+    """One eager fused step of a multi-tenant L0 config: ``tenant_bytes``
+    moves by the written slots' change and the L0 bump writes only the
+    touched bucket versions, so no operator returns a whole column but
+    the bytes_cached reduction's two."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    cfg = CacheConfig(n_buckets=1024, assoc=4, capacity=2048, n_tenants=3,
+                      l0_entries=8)
+    n, seen = cfg.n_slots, []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if "empty" not in str(func):
+                seen.extend(str(func) for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor) and t.dim()
+                            and t.shape[0] >= n)
+            return out
+
+    st, cl, sa = t_cache.make_cache(cfg, C, 0, cuda)
+    keys = _t(np.arange(1, 8 * C + 1).reshape(8, C), cuda)
+    ten = keys % 3
+    t_cache.access_group_(cfg, st, cl, sa, keys, tenant=ten)
+    with Watch():
+        t_cache.access_group_(cfg, st, cl, sa, keys + 1, tenant=ten,
+                              is_write=keys > 30)
+    assert [f.split(".")[1] for f in seen] == ["eq", "where"], seen
 
 
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}

@@ -15,7 +15,8 @@ facts form is held against the JAX package's own step code
 ``drop_scatter`` against XLA's drop-mode scatters group by group.  The
 ranked eviction's draw form (the fused step's) is held against the JAX
 step's own threefry draw, expert choice, Pallas ``ranked_eviction`` and
-victim bitmap.  Integer outputs are bit-equal; the f32 ``ext`` column is
+victim bitmap, with and without tenants (each op's choice from its
+(lane, tenant) weights, its sample scoped by the tenant filter).  Integer outputs are bit-equal; the f32 ``ext`` column is
 held to ``assert_array_max_ulp(maxulp=4)`` (XLA and PyTorch round
 ``exp`` apart); ``metadata_update``'s ``freq`` is bit-equal on integer
 deltas and within ``rtol=1e-6`` on non-integer ones (the Pallas kernel
@@ -365,11 +366,14 @@ def test_ranked_eviction_scalar_quota_and_no_live_sample():
 
 
 def _jax_draw_and_eviction(size, ins, last, freq, keys, weights, must, quota,
-                           ts, G, W, K, experts):
+                           ts, G, W, K, experts, tenant=None, tfilt=None,
+                           op_tenant=None):
     """The cache step's draw, expert choice, Pallas eviction and bitmap as
     the JAX package's step computes them (``repro/core/cache.py:197-199``,
     ``:358``, ``:382``, ``:497-504``, ``:604-610``) on these inputs: keys
-    u32[lanes, 2] tiled over G rounds, per-lane weights [lanes, E].  An
+    u32[lanes, 2] tiled over G rounds, per-lane weights [lanes, E], or
+    per-(lane, tenant) weights [lanes, T, E] with each op's tenant id
+    ``op_tenant``; ``tenant`` [C] and ``tfilt`` [B] the sample filter.  An
     expert choice of E takes no victim, as the reference backend's NaN
     gather decides (the Pallas kernel would rank by expert 0; ROADMAP
     Queue 3)."""
@@ -380,13 +384,18 @@ def _jax_draw_and_eviction(size, ins, last, freq, keys, weights, must, quota,
     step_rng = jax.vmap(jax.random.fold_in)(rng_b, jnp.asarray(ts, jnp.uint32))
     u2 = jax.vmap(lambda r: jax.random.uniform(r, (2,)))(step_rng)
     lane_b = jnp.tile(jnp.arange(lanes, dtype=jnp.int32), G)
-    e_choice = j_cache._choose_expert(jnp.asarray(weights)[lane_b], u2[:, 0])
+    w = jnp.asarray(weights)
+    rows = (w[lane_b] if op_tenant is None
+            else w[lane_b, jnp.asarray(op_tenant, jnp.int32)])
+    e_choice = j_cache._choose_expert(rows, u2[:, 0])
     offs = jnp.minimum((u2[:, 1] * C).astype(jnp.int32), C - 1)
     wrap = lambda x: jnp.asarray(np.concatenate([x, x[:W]]).astype(np.float32))
+    filt = {} if tenant is None else dict(tenant=wrap(tenant),
+                                          tfilt=jnp.asarray(tfilt, jnp.int32))
     victims, cand = jops.ranked_eviction_op(
         wrap(size), wrap(ins), wrap(last), wrap(freq), offs, e_choice,
         jnp.asarray(must), jnp.asarray(quota), jnp.asarray(ts), window=W,
-        k=K, experts=experts)
+        k=K, experts=experts, **filt)
     victims = jnp.where((e_choice < E)[:, None], victims, -1)
     flat = victims.reshape(-1)
     cand_rep = jnp.repeat(cand, K, axis=0)
@@ -443,6 +452,66 @@ def test_ranked_eviction_draw_matches_the_jax_step(seed, C, lanes, G, W, K,
     assert int((got[0] >= 0).sum()) > 0
     assert bool((got[2] == E).any()) == starved
     assert bool((got[2][got[2] < E] >= 0).all())
+
+
+@pytest.mark.parametrize("seed,C,lanes,G,W,K,Tn,experts", [
+    (6, 6 * 37, 4, 3, 20, 5, 3, ("lru", "lfu")),
+    (7, 300, 5, 2, 66, 33, 2, EXPERTS),
+    (8, 256, 3, 4, 128, 64, 4, ("hyperbolic", "lfu")),
+    (9, 6 * 23, 8, 2, 40, 5, 2, ("size",))])
+def test_ranked_eviction_draw_with_tenants_matches_the_jax_step(
+        seed, C, lanes, G, W, K, Tn, experts):
+    """The draw form's tenant case (the multi-tenant step's): each op's
+    expert choice from its (lane, tenant) weights, ``_choose_expert(
+    local_w[lane_b, tb_i], u)`` of the JAX step, and its sample scoped by
+    the tenant filter (-1 unfiltered), against the JAX step's draw and
+    Pallas ``ranked_eviction_op(..., tenant=, tfilt=)``, bit for bit; the
+    (lane, tenant) row of lane 0, tenant 1 sums below 1e-30 (choice E).
+    Filtered ops claim only their tenant's slots.  Then the untenanted
+    form is the tenant form with one tenant, bit for bit."""
+    from repro_torch.core import cache as t_cache
+    rng = np.random.default_rng(seed)
+    B, E = G * lanes, len(experts)
+    size = rng.choice([0, 1, 2, 3, 8, 255], C).astype(np.uint32)
+    ins = rng.integers(0, 900, C).astype(np.uint32)
+    last = rng.integers(0, 2**32, C, dtype=np.uint64).astype(np.uint32)
+    freq = rng.integers(0, 6, C).astype(np.uint32)
+    tenant = rng.integers(0, Tn, C).astype(np.uint32)
+    keys = rng.integers(0, 2**32, (lanes, 2), dtype=np.uint64).astype(
+        np.uint32)
+    weights = rng.random((lanes, Tn, E)).astype(np.float32) + 1e-4
+    weights[0, 1] = 1e-32
+    op_tenant = rng.integers(0, Tn, B)
+    op_tenant[0] = 1
+    tfilt = np.where(rng.random(B) < 0.5, -1, op_tenant)
+    ts = np.repeat(1000 + np.arange(G), lanes).astype(np.uint32)
+    must = rng.random(B) < 0.85
+    quota = rng.integers(0, 4 * K, B).astype(np.int32)
+    want = _jax_draw_and_eviction(size, ins, last, freq, keys, weights, must,
+                                  quota, ts, G, W, K, experts, tenant=tenant,
+                                  tfilt=tfilt, op_tenant=op_tenant)
+    cdf = t_cache._expert_cdf(torch.from_numpy(weights))    # [lanes, T, E]
+    args = (_t(size), _t(ins), _t(last), _t(freq), _t(keys), cdf,
+            torch.from_numpy(must), _t(quota), _t(ts))
+    kw = dict(window=W, k=K, experts=experts)
+    got = ops.ranked_eviction_draw_op(*args, **kw, tenant=_t(tenant),
+                                      tfilt=_t(tfilt),
+                                      op_tenant=_t(op_tenant))
+    offs, _ = ref.eviction_draw_ref(_t(keys), cdf, _t(ts), C, _t(op_tenant))
+    for name, g, w in zip(("victims", "cand", "e_choice", "bmap", "offsets"),
+                          got + (offs,), want):
+        assert np.array_equal(g.numpy(), w), name
+    v = got[0].numpy()
+    assert (v >= 0).sum() > 0 and int(got[2][0]) == E
+    for b in np.nonzero(tfilt >= 0)[0]:
+        assert (tenant[v[b][v[b] >= 0]] == tfilt[b]).all(), b
+    one = ops.ranked_eviction_draw_op(*args[:5], cdf[:, -1].contiguous(),
+                                      *args[6:], **kw)
+    as_tenant = ops.ranked_eviction_draw_op(
+        *args[:5], cdf[:, -1:].contiguous(), *args[6:], **kw,
+        op_tenant=_t(np.zeros(B)))
+    for a, b in zip(one, as_tenant):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1062,28 @@ def test_ranked_eviction_draw_checks_its_arguments():
                                window=2, k=1, experts=())
     with pytest.raises(ValueError, match="no kernel"):
         ops.ranked_eviction_draw_op(*(t.to("meta") for t in good), **kw)
+    # The tenant case: a [lanes, T, E] cdf with each op's tenant id, and
+    # the sample filter's column and per-op ids, together.
+    cdf3 = torch.ones(2, 3, 2)
+    ot = _t([2, 0])
+    v3 = ops.ranked_eviction_draw_op(*good[:5], cdf3, *good[6:], **kw,
+                                     op_tenant=ot, tenant=z, tfilt=_t([-1, 1]))
+    assert v3[0].shape == (2, 2)
+    for bad, exc, match in (
+            (dict(op_tenant=ot), ValueError, "cdf"),      # a [lanes, E] cdf
+            (dict(cdf=cdf3), ValueError, "cdf"),          # no op_tenant
+            (dict(cdf=cdf3, op_tenant=_t([1, 2, 0])), ValueError,
+             "op_tenant"),
+            (dict(cdf=cdf3, op_tenant=ot.int()), TypeError, "op_tenant"),
+            (dict(cdf=torch.ones(2, 0, 2), op_tenant=ot), ValueError,
+             "tenant"),
+            (dict(tenant=z), ValueError, "together"),
+            (dict(tenant=_t([1] * 5), tfilt=_t([0, 0])), ValueError,
+             "tenant"),
+            (dict(tenant=z, tfilt=_t([0])), ValueError, "tfilt")):
+        args = good[:5] + (bad.pop("cdf", cdf),) + good[6:]
+        with pytest.raises(exc, match=match):
+            ops.ranked_eviction_draw_op(*args, **kw, **bad)
 
 
 def test_each_cuda_source_carries_its_note_and_entry_point():
