@@ -170,12 +170,39 @@ Phases, each of which raises (exit code != 0) on any failure:
    the control and a hit ratio within 1 pp of it.
    Phases 9 and 10 each count one eager step's operators of their config
    and hold it to phase 3's whole-column rule.
+11. The DM pool: phase 3's table as a ``Cluster`` of 8 memory shards x 8
+   client lanes (``examples/dm_elastic_cache.py``'s topology, 64 lanes,
+   route capacity q = 5), YCSB-A (zipf 0.99) over 10M keys, 6,000,000
+   requests as [2929, 32, 64] groups through ``Cluster.execute`` on both
+   backends.  Fused and reference must be bit-equal (hits and every
+   ``DMCache`` leaf; ext and gds_L within 4 ulp, weights within 16),
+   ``gets + sets + route_drops`` equal the issued requests, every shard
+   must have evicted and the shards' ``n_cached`` be within 5% of each
+   other; each of the four cache kernels must launch 8 times a fused DM
+   step (once a shard step).  The first 64 groups re-run with
+   ``sanitize=True`` (fused) must raise nothing and equal the unarmed
+   run bit for bit.  One eager fused DM step's operators are counted.
+12. Failover: ``benchmarks/elasticity.py``'s failover leg on phase 11's
+   cluster: ``failover_trace`` (70% of requests on 48 keys homed on shard
+   1, the rest zipf over 10M keys, seed 7), 192 windows of 16 rounds x
+   64 lanes, run as the benchmark's scenario driver runs them: a window of
+   16 rounds a ``Cluster.execute`` call, one DM step a round; shard 1
+   fails at window 64 (``inject_failure``), is marked failed at 68 and
+   recovers with a rewarm at 128; a replicated arm (96 hot buckets
+   elected from windows 0-63's request counts) against a control.  The
+   benchmark's three assertions on per-window hit ratios
+   (the replicated dip shallower by more than 2 pp, fewer route drops,
+   a rerouted-window hit ratio no worse by more than 0.02), the
+   accounting, a rewarm that moved objects, and no re-capture of the
+   graph across the membership changes.  Then a copy with a duplicated
+   live key in one bucket, run with ``sanitize=True``, must raise SAN003
+   when its segment ends.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
 counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
-engine's, phase 9's and 10's) and read just after it.
+engine's, phase 9's, 10's and 11's) and read just after it.
 
 The second-to-last line is the kernels' JSON record (each with the
 launch floor, ``floor_ms``), the last line
@@ -250,6 +277,17 @@ TENANT_SPECS = (dict(kind="zipf", n_keys=2_000_000, theta=0.9, lanes=21),
                      lanes=32))
 CHUNKS = 20
 L0_ENTRIES = 8
+# Phase 11: examples/dm_elastic_cache.py's 8 shards x 8 lanes on phase 3's
+# table (64 lanes), YCSB-A; its first DM_SAN_GROUPS groups re-run armed.
+# Phase 12: benchmarks/elasticity.py's failover leg (its window of 16
+# rounds a group, 70% of requests on 48 keys homed on the shard that
+# fails, 96 replicated buckets) on that cluster.
+DM_SHARDS, DM_LANES, DM_ROUTE = 8, 8, 4
+DM_REQUESTS = 6_000_000
+DM_SAN_GROUPS = 64
+DM_BALANCE = 0.05       # the most the shards' n_cached may spread, / mean
+FAIL_GROUPS, FAIL_WINDOW, FAIL_SHARD, FAIL_HOT = 192, 16, 1, 96
+FAIL_AT, DETECT_AT, RECOVER_AT = 64, 68, 128
 ENGINE = dict(requests=24, prompt=96, shared=48, new=16, lanes=4,
               page_size=16, pool_pages=32)
 
@@ -1688,6 +1726,338 @@ def run_l0(dev, card: str, results: dict, profile: int = 0,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 11 and 12: the DM pool and the failover leg.
+# ---------------------------------------------------------------------------
+
+def dm_parts(cl) -> tuple:
+    return (cl.dm.state, cl.dm.clients, cl.dm.stats)
+
+
+def dm_inputs(k2, w2, n_groups: int, G: int, dev) -> tuple:
+    """The first n_groups * G rounds of a [T, S*lanes] trace as
+    [n_groups, G, S*lanes] tensors on the card."""
+    import numpy as np
+    import torch
+    k = k2[:n_groups * G].reshape(n_groups, G, -1).astype(np.int64)
+    w = w2[:n_groups * G].reshape(n_groups, G, -1)
+    return (torch.as_tensor(k, device=dev), torch.as_tensor(w, device=dev))
+
+
+def dm_step_ops(dev, cl, keys, wr) -> dict:
+    """The operators of one eager DM step (the group ``keys`` [G, S*lanes]
+    routed and exchanged first, outside the count): all of them, and
+    those that may launch device work (no allocation or view)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.dm import sharded_cache as sc
+
+    S, L = cl.n_shards, cl.lanes_per_shard
+    q = sc._route_capacity(L, S, DM_ROUTE)
+    member = cl.membership()
+    split = lambda x: x.reshape(1, keys.shape[0], S, L)
+    rt = sc._route(S, L, q, cl.cfg.n_buckets, split(keys), split(wr),
+                   split(torch.ones_like(keys)), split(torch.zeros_like(keys)),
+                   member)
+    recv, _, _ = sc._exchange(rt, member.serving)
+    xs = tuple(x[0] for x in recv)
+    step = sc._dm_step(cl.local, S, L, q)
+    pad = sc._padded_rng(cl.dm.clients, S, L, S * q)
+    carry = lambda: (cl.dm.state._replace(**{
+        f: getattr(cl.dm.state, f).clone() for f in sc.SLOT_COLUMNS}),
+        cl.dm.clients, cl.dm.stats, pad)
+    step(carry(), xs)                          # warm
+    called = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            called.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    c = carry()
+    with Watch():
+        step(c, xs)
+    work = [o for o in called if not any(k in o for k in NO_KERNEL)]
+    return dict(operators=len(called), device_ops=len(work))
+
+
+def profile_dm(dev, card: str, cfg, k3, w3, n_groups: int,
+               out_dir: Path | None) -> None:
+    """Trace n_groups fused DM steps, and twice as many, with
+    torch.profiler (each window one ``Cluster.execute`` from a fresh
+    cluster: routing of its groups, the carry's copy into the graph and
+    out, and the replays); the difference is the step alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.dm import Cluster
+
+    def run(k):
+        cl = Cluster.make(cfg, DM_SHARDS, DM_LANES, SEED, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cl.execute(k3[:k], w3[:k], route_factor=DM_ROUTE)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    run(n_groups)                              # capture + allocator warm
+    cats = []
+    for k in (n_groups, 2 * n_groups):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run(k)
+        cats.append(report_profile(prof, card, "dm_fused", k, wall,
+                                   out_dir if k == n_groups else None))
+    step = {kind: (t - cats[0].get(kind, 0.0)) / n_groups
+            for kind, t in cats[1].items()}
+    n_kernels = step.pop("kernels")
+    log(f"    the DM step alone ({2 * n_groups} less {n_groups} steps), "
+        f"device {sum(step.values()):.0f} us/step in {n_kernels:.0f} "
+        f"kernels/step; by kind, us/step: "
+        + ", ".join(f"{c} {t:.1f}" for c, t in
+                    sorted(step.items(), key=lambda x: -x[1])))
+
+
+def run_dm(dev, card: str, results: dict, profile: int = 0,
+           out_dir: Path | None = None) -> dict:
+    """Phase 11: YCSB-A through ``Cluster.execute`` on an 8 x 8 cluster
+    of phase 3's table, both backends, then the sanitize-armed re-run of
+    its first groups; ``profile``: then trace that many fused DM steps
+    (and twice as many)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import CacheConfig
+    from repro_torch.core import cache as core_cache
+    from repro_torch.core.types import hit_ratio
+    from repro_torch.dm import Cluster
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.gen import interleave, ycsb
+
+    t_phase = time.perf_counter()
+    S = DM_SHARDS
+    keys, wr = ycsb("A", DM_REQUESTS, n_keys=N_KEYS, seed=SEED)
+    k2, w2 = interleave(keys, S * DM_LANES, wr)
+    NG = k2.shape[0] // BATCH
+    k3, w3 = dm_inputs(k2, w2, NG, BATCH, dev)
+    issued = int((k3 != 0).sum())
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY)
+    q = min(DM_LANES, DM_ROUTE * DM_LANES // S + 1)
+    log(f"phase 11: YCSB-A, {issued} requests over {N_KEYS} keys, {S} "
+        f"shards x {DM_LANES} lanes (q = {q}), {NG} groups of {BATCH} "
+        f"rounds, route_factor {DM_ROUTE}")
+    out = dict(requests=issued, groups=NG, shards=S, lanes=DM_LANES, q=q)
+    runs = {}
+    for backend in ("fused", "reference"):
+        cl = Cluster.make(dataclasses.replace(cfg, backend=backend), S,
+                          DM_LANES, SEED, device=dev)
+        ops.reset_launches()
+        n_graphs = len(core_cache._GRAPHS)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cl, hits = cl.execute(k3, w3, route_factor=DM_ROUTE)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = cache_launches()
+        captured = len(core_cache._GRAPHS) - n_graphs
+        s, per = cl.stats, cl.dm.stats
+        n_cached = cl.dm.state.n_cached.tolist()
+        out[backend] = dict(
+            wall_s=wall, requests_per_s=issued / wall,
+            us_per_step=wall * 1e6 / NG, hit_ratio=hit_ratio(s),
+            route_drops=int(s.route_drops), evictions=int(s.evictions),
+            shard_evictions=per.evictions.tolist(), n_cached=n_cached,
+            launches=launches, graphs_captured=captured)
+        log(f"[{card}] phase 11 {backend}: {issued} requests in {wall:.2f} s "
+            f"= {issued / wall:.0f} requests/s, {wall * 1e6 / NG:.0f} "
+            f"us/step, hit ratio {hit_ratio(s):.4f}, route_drops "
+            f"{int(s.route_drops)}, evictions {per.evictions.tolist()}, "
+            f"n_cached {n_cached}, launches {launches}")
+        runs[backend] = (hits, dm_parts(cl))
+        if int(s.gets + s.sets + s.route_drops) != issued:
+            raise AssertionError(f"phase 11 {backend}: gets + sets + "
+                                 f"route_drops != {issued} issued")
+        if not bool((per.evictions > 0).all()):
+            raise AssertionError(f"phase 11 {backend}: a shard never "
+                                 f"evicted: {per.evictions.tolist()}")
+        if (max(n_cached) - min(n_cached)) > DM_BALANCE * np.mean(n_cached):
+            raise AssertionError(f"phase 11 {backend}: shards unbalanced: "
+                                 f"{n_cached}")
+        want = S * (NG + captured) if backend == "fused" else 0
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"phase 11 {backend}: launches {launches}, "
+                                 f"not {want} ({S} a DM step)")
+        if backend == "fused":
+            for k in CACHE_KERNELS:
+                results[k]["launches_dm"] = launches[k]
+    (ha, pa), (hb, pb) = runs["fused"], runs["reference"]
+    if not torch.equal(ha, hb):
+        raise AssertionError("phase 11: fused and reference hits differ")
+    same_parts("phase 11", pa, pb, 4, weight_ulp=16)
+
+    # The sanitize-armed re-run of the first groups: it raises nothing
+    # and reaches the unarmed run's state bit for bit.
+    armed = {}
+    for sanitize in (False, True):
+        cl = Cluster.make(dataclasses.replace(cfg, sanitize=sanitize), S,
+                          DM_LANES, SEED, device=dev)
+        armed[sanitize] = cl.execute(k3[:DM_SAN_GROUPS], w3[:DM_SAN_GROUPS],
+                                     route_factor=DM_ROUTE)
+    if not torch.equal(armed[False][1], armed[True][1]):
+        raise AssertionError("phase 11: the sanitized run's hits differ")
+    same_parts("phase 11 sanitized", dm_parts(armed[False][0]),
+               dm_parts(armed[True][0]), 0, weight_ulp=0)
+    cl = Cluster.make(cfg, S, DM_LANES, SEED, device=dev)
+    out["step_ops"] = dm_step_ops(dev, cl, k3[0], w3[0])
+    if profile:
+        profile_dm(dev, card, cfg, k3, w3, profile, out_dir)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: fused == reference (integers bit-equal, weights <= 16 "
+        f"ulp); sanitize-armed first {DM_SAN_GROUPS} groups raise nothing "
+        f"and equal the unarmed run; one eager fused DM step "
+        f"{out['step_ops']['operators']} operators "
+        f"({out['step_ops']['device_ops']} neither an allocation nor a "
+        f"view); phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def run_failover(dev, card: str, results: dict) -> dict:
+    """Phase 12: ``benchmarks/elasticity.py``'s failover leg on phase 11's
+    cluster, a replicated arm against a control: windows of 16 rounds,
+    each round one DM step, as the benchmark's scenario driver runs
+    them."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.analysis.sanitize import SanitizerError
+    from repro_torch.core import CacheConfig
+    from repro_torch.core import cache as core_cache
+    from repro_torch.core.types import stats_delta
+    from repro_torch.dm import Cluster
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.gen import _mix32, failover_trace
+
+    t_phase = time.perf_counter()
+    S, W = DM_SHARDS, FAIL_WINDOW
+    trace = failover_trace(FAIL_GROUPS * W, DM_LANES, S, N_BUCKETS,
+                           hot_shard=FAIL_SHARD, hot_fraction=0.7, n_hot=48,
+                           n_keys=N_KEYS, seed=7)
+    kt = torch.as_tensor(trace.astype(np.int64), device=dev)
+    issued = int((trace != 0).sum())
+    loads = np.bincount((_mix32(trace[:FAIL_AT * W]) % N_BUCKETS).ravel(),
+                        minlength=N_BUCKETS).astype(np.float64)
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY)
+    log(f"phase 12: failover_trace, {issued} requests ({FAIL_GROUPS} "
+        f"windows of {W} rounds, a DM step each), shard {FAIL_SHARD} fails "
+        f"at window {FAIL_AT}, marked failed at {DETECT_AT}, recovers at "
+        f"{RECOVER_AT}")
+    out, graphs = dict(requests=issued), None
+    for k in CACHE_KERNELS:
+        results[k]["launches_failover"] = 0
+    for name, n_hot in (("replicated", FAIL_HOT), ("control", 0)):
+        cl = Cluster.make(cfg, S, DM_LANES, 7, device=dev)
+        ws, report, prev = [], None, cl.stats
+        ops.reset_launches()
+        n_graphs = len(core_cache._GRAPHS)
+        t0 = time.perf_counter()
+        for g in range(FAIL_GROUPS):
+            if g == FAIL_AT:
+                if n_hot:
+                    cl = cl.elect_replicas(loads, n_hot)
+                cl = cl.inject_failure(FAIL_SHARD)
+            if g == DETECT_AT:
+                cl = cl.mark_failed(FAIL_SHARD)
+            if g == RECOVER_AT:
+                cl, report = cl.recover(FAIL_SHARD, rewarm=True)
+            cl, _ = cl.execute(kt[g * W:(g + 1) * W], route_factor=DM_ROUTE)
+            s = cl.stats
+            d = stats_delta(s, prev)
+            prev = s
+            ws.append(dict(t0=g * W, t1=(g + 1) * W,
+                           hit_rate=int(d.hits) / max(int(d.gets + d.sets), 1),
+                           route_drops=int(d.route_drops),
+                           routed=cl.routed[FAIL_SHARD]))
+            if graphs is None:
+                graphs = len(core_cache._GRAPHS)
+        wall = time.perf_counter() - t0
+        launches = cache_launches()
+        want = S * (FAIL_GROUPS * W + len(core_cache._GRAPHS) - n_graphs)
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"phase 12 {name}: launches {launches}, "
+                                 f"not {want} ({S} a DM step)")
+        for k in CACHE_KERNELS:
+            results[k]["launches_failover"] += launches[k]
+        t_fail, t_rec = FAIL_AT * W, RECOVER_AT * W
+        pre = float(np.mean([w["hit_rate"] for w in ws
+                             if w["t1"] <= t_fail and w["t0"] >= W]))
+        outage = [w for w in ws if w["t0"] >= t_fail and w["t1"] <= t_rec]
+        detect = next((w["t1"] for w in ws if not w["routed"]), t_rec)
+        rerouted = [w for w in outage if w["t0"] >= detect]
+        s = cl.stats
+        out[name] = dict(
+            wall_s=wall, pre_fail_hit_rate=pre,
+            dip_depth_pp=100 * (pre - min(w["hit_rate"] for w in outage)),
+            hit_rate=float(np.mean([w["hit_rate"] for w in rerouted])),
+            route_drops=int(s.route_drops),
+            replica_writes=int(s.replica_writes),
+            n_replicated=int((cl.replica_map() < S).sum()),
+            rewarm=dict(report._asdict()), launches=launches,
+            windows=[round(w["hit_rate"], 6) for w in ws])
+        log(f"[{card}] phase 12 {name}: {FAIL_GROUPS} windows in {wall:.2f} "
+            f"s; pre-failure hit ratio {pre:.4f}, dip "
+            f"{out[name]['dip_depth_pp']:.2f} pp, rerouted-window hit ratio "
+            f"{out[name]['hit_rate']:.4f}, route_drops "
+            f"{out[name]['route_drops']}, rewarm {tuple(report)}")
+        if int(s.gets + s.sets + s.route_drops) != issued:
+            raise AssertionError(f"phase 12 {name}: gets + sets + "
+                                 f"route_drops != {issued} issued")
+        if report.drained_objects <= 0:
+            raise AssertionError(f"phase 12 {name}: the rewarm moved nothing")
+    if len(core_cache._GRAPHS) != graphs:
+        raise AssertionError("phase 12: a membership change re-captured the "
+                             "DM step's graph")
+    rep, ctl = out["replicated"], out["control"]
+    # benchmarks/elasticity.py's three assertions.
+    if not rep["dip_depth_pp"] < ctl["dip_depth_pp"] - 2.0:
+        raise AssertionError(f"phase 12: replication did not flatten the "
+                             f"dip: {rep['dip_depth_pp']:.2f} vs "
+                             f"{ctl['dip_depth_pp']:.2f} pp")
+    if not rep["route_drops"] < ctl["route_drops"]:
+        raise AssertionError("phase 12: replication did not reduce bounced "
+                             "requests")
+    if not rep["hit_rate"] >= ctl["hit_rate"] - 0.02:
+        raise AssertionError(f"phase 12: replicated recovery-window hit "
+                             f"ratio {rep['hit_rate']:.4f} regressed from "
+                             f"{ctl['hit_rate']:.4f}")
+
+    # A duplicated live key in one bucket of shard 0, on a copy: the
+    # sanitize-armed run raises SAN003 when its segment ends.
+    ls, A = cl.local.n_slots, ASSOC
+    live = ((cl.dm.state.size[:ls] != 0) & (cl.dm.state.size[:ls] != 255)
+            ).reshape(-1, A)
+    b = int(torch.nonzero(live.sum(dim=1) >= 2)[0, 0])
+    i, j = (b * A + torch.nonzero(live[b])[:2, 0]).tolist()
+    key = cl.dm.state.key.clone()
+    key[j] = key[i]
+    bad = cl._replace(local=dataclasses.replace(cl.local, sanitize=True),
+                      dm=cl.dm._replace(state=cl.dm.state._replace(key=key)))
+    try:
+        bad.execute(kt[:W], route_factor=DM_ROUTE)
+    except SanitizerError as e:
+        if not str(e).startswith("SAN003"):
+            raise AssertionError(f"phase 12: the corrupted copy raised {e}")
+        out["sanitizer"] = str(e)
+    else:
+        raise AssertionError("phase 12: a duplicated live key went unseen")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: the replicated arm dips {rep['dip_depth_pp']:.2f} pp "
+        f"against {ctl['dip_depth_pp']:.2f}, drops {rep['route_drops']} "
+        f"against {ctl['route_drops']}, rerouted hit ratio "
+        f"{rep['hit_rate']:.4f} against {ctl['hit_rate']:.4f}; no graph "
+        f"re-captured across the membership changes; the corrupted copy "
+        f"raised \"{out['sanitizer']}\"; phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 # Operators that launch no device work: allocations and views.
 NO_KERNEL = ("empty", "view", "reshape", "expand", "select", "slice",
              "unsqueeze", "squeeze", "permute", "alias", "as_strided", "lift",
@@ -2463,8 +2833,8 @@ def main() -> int:
     ap.add_argument("--profile", type=int, default=0,
                     help="also trace this many grouped steps per backend "
                          "and twice as many (the difference is the step "
-                         "alone) of phases 3, 9 and 10, one yi-9b prefill "
-                         "and 8 decode steps")
+                         "alone) of phases 3, 9 and 10 (phase 11: fused "
+                         "DM steps), one yi-9b prefill and 8 decode steps")
     ap.add_argument("--step-only", action="store_true",
                     help="only plan phase 3's trace, count one eager step's "
                          "operators per backend and, with --profile, trace "
@@ -2529,6 +2899,8 @@ def main() -> int:
     prof_dir = Path(a.out).parent if a.out else None
     e2e["tenants"] = run_tenants(dev, card, results, a.profile, prof_dir)
     e2e["l0"] = run_l0(dev, card, results, a.profile, prof_dir)
+    e2e["dm"] = run_dm(dev, card, results, a.profile, prof_dir)
+    e2e["failover"] = run_failover(dev, card, results)
 
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",
@@ -2550,7 +2922,8 @@ def main() -> int:
              "bound_ms_65k", "wrapper_ms_65k", "wrapper_bound_ms_65k",
              "launches_gemma_2b", "layer_row_err_gemma_2b", "ms_tenant",
              "plain_ms_tenant", "bound_ms_tenant", "ms_w128",
-             "launches_tenants", "launches_l0",
+             "launches_tenants", "launches_l0", "launches_dm",
+             "launches_failover",
              *(f + k for k in ("_4k", "_gemma_4k") for f in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")))
     kernels = []

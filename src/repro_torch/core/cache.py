@@ -44,8 +44,16 @@ Port notes:
   plain torch on both backends: the probe masks an L0-served GET to a
   padded no-op before the remote path, and the bucket-version bump and
   the one-per-lane fill follow the apply.
-* ``sanitize=True`` and the DM layer's ``shadow`` ops raise
-  ``NotImplementedError``: they are later items of the port's roadmap.
+* ``shadow`` marks the DM layer's write-through replica mirrors
+  (``dm/sharded_cache.py``): they execute in full and move the RDMA
+  counters, but not the client-visible ones (gets, sets, hits, misses,
+  their bytes), and count in ``replica_writes``; a mirror is never served
+  from, nor fills, the L0 tier.
+* ``sanitize=True`` runs the invariant checks of
+  ``analysis/sanitize.py`` on the state the step produced.  They fold
+  into one i64 word (tensor ops, no host sync): a trace driver passes
+  its carried word as ``san_word`` and reads it after the segment; a
+  step called on its own reads its word at once and raises.
 """
 
 from __future__ import annotations
@@ -76,17 +84,6 @@ class AccessResult(NamedTuple):
     value: torch.Tensor     # u32[G, C, W] (garbage where miss)
     evicted: torch.Tensor   # bool[G, C]
     regret: torch.Tensor    # bool[G, C]
-
-
-def _unsupported(cfg: CacheConfig, shadow) -> None:
-    if cfg.sanitize:
-        raise NotImplementedError(
-            "sanitize=True (the invariant sanitizer) is ROADMAP Queue 1 "
-            "item 12, not yet ported")
-    if shadow is not None:
-        raise NotImplementedError(
-            "shadow (replica mirror) ops belong to the DM layer, ROADMAP "
-            "Queue 1 item 13, not yet ported")
 
 
 def _md_view(state: CacheState, idx: torch.Tensor,
@@ -223,11 +220,14 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                   tenant: torch.Tensor | None = None,
                   insert_on_miss: bool = True,
                   shadow: torch.Tensor | None = None,
+                  san_word: torch.Tensor | None = None,
                   ) -> Tuple[CacheState, ClientState, OpStats, AccessResult]:
     """One batched cache step over a [G, C] request group, in place: the
     table columns of ``state`` (:func:`written_columns`) take the step's
     writes, and the returned state holds those very tensors.  The caller
-    owns them; ``clients`` and ``stats`` are not written.
+    owns them; ``clients`` and ``stats`` are not written.  ``state`` may
+    be a view of a larger table (a DM shard's slice): the step writes its
+    columns only in place and rebinds only its scalars.
 
     Args:
       keys: u32[G, C]; 0 marks a padded no-op lane.
@@ -236,8 +236,12 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
       values: u32[G, C, W] payload written on insert/set.
       tenant: u32[G, C] tenant ids in [0, n_tenants) (larger ids count as
         the last tenant); ignored when ``n_tenants == 1``.
+      shadow: bool[G, C] — write-through replica mirrors (DM layer);
+        ``None`` is all-False.
+      san_word: with ``cfg.sanitize``, the trace driver's i64 word that
+        the step's checks fold into (in place); ``None`` reads them at
+        once and raises.
     """
-    _unsupported(cfg, shadow)
     G, C = keys.shape
     B = G * C
     E = cfg.n_experts
@@ -287,6 +291,11 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     #     (its bucket's version token and the flush epoch current) serves
     #     a plain GET, which then runs below as a padded no-op (key 0).
     if l0:
+        # Only plain GETs are served locally: writes and replica mirrors
+        # travel to the pool, so they bump the bucket's version.
+        servable = op & ~is_write
+        if shadow is not None:
+            servable = servable & ~shadow.reshape(B)
         ent_bkt = torch.clamp(clients.l0_bkt, 0, cfg.n_buckets - 1)
         ent_present = clients.l0_key != 0                     # [C, L0]
         ent_valid = (ent_present
@@ -296,7 +305,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         l0_match = (ent_valid[lane_b]
                     & (clients.l0_key[lane_b] == keys_b[:, None]))  # [B, L0]
         l0_idx = _argmax(l0_match)                            # [B]
-        l0_hit = l0_match.any(dim=1) & op & ~is_write
+        l0_hit = l0_match.any(dim=1) & servable
         l0_value = clients.l0_val[lane_b, l0_idx]             # [B, W]
         l0_size = clients.l0_sz[lane_b, l0_idx]               # [B]
         keys_b = torch.where(l0_hit, 0, keys_b)
@@ -658,6 +667,8 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         kref.drop_scatter_ref(t_idx, (state.bucket_ver,), ((t_ver + 1) & M32,))
         untouched = state.bucket_ver[bucket] == ver0_b
         fill_ok = hit & ~is_write & untouched                 # [B]
+        if shadow is not None:
+            fill_ok = fill_ok & ~shadow.reshape(B)
         pos = torch.arange(B, device=dev)
         last_fill = torch.where(fill_ok, pos, -1).reshape(G, C).amax(dim=0)
         f_req = torch.clamp(last_fill, min=0)                 # [C] -> B idx
@@ -733,7 +744,21 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                + ins_blocks * 64 + n_ins * SLOT_B
                + set_blocks * 64
                + n_write_hist * 16 + sep_hist * SLOT_B)
-    gets, hits, hit_bytes = n_op - n_set, n_hit, hit_blocks * 64
+    if shadow is None:
+        gets, sets, hits, misses = n_op - n_set, n_set, n_hit, n_miss
+        hit_bytes, miss_bytes = hit_blocks * 64, miss_blocks * 64
+    else:
+        # Mirrors move the RDMA counters above but are replication
+        # traffic, not offered load: the client-visible counters skip
+        # them and replica_writes counts them.
+        sh = shadow.reshape(B) & op
+        vis = op & ~sh
+        sets = (vis & is_write).sum()
+        gets, hits, misses = (vis.sum() - sets, (hit & ~sh).sum(),
+                              (miss & ~sh).sum())
+        hit_bytes = torch.where(hit & ~sh, old_sz, 0).sum() * 64
+        miss_bytes = torch.where(miss & ~sh, obj_size, 0).sum() * 64
+        stats = stats_add(stats, replica_writes=sh.sum())
     if l0:
         # L0 hits are client-visible gets and hits that move no RDMA
         # counter; they rejoin the caller's result.
@@ -746,13 +771,21 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         result_vals = torch.where(l0_hit[:, None], l0_value, result_vals)
     stats = stats_add(
         stats, rdma_read=reads, rdma_write=writes, rdma_cas=cas,
-        rdma_faa=faa, rpc=n_sync, gets=gets, sets=n_set,
+        rdma_faa=faa, rpc=n_sync, gets=gets, sets=sets,
         rdma_read_bytes=read_b, rdma_write_bytes=write_b,
-        hit_bytes=hit_bytes, miss_bytes=miss_blocks * 64,
-        hits=hits, misses=n_miss, regrets=regret.sum(),
+        hit_bytes=hit_bytes, miss_bytes=miss_bytes,
+        hits=hits, misses=misses, regrets=regret.sum(),
         evictions=n_evict, bucket_evictions=fallback_obj.sum(),
         insert_drops=dropped.sum(), fc_hits=n_fc_hit, fc_flushes=n_faa,
         weight_syncs=n_sync)
+
+    if cfg.sanitize:
+        from repro_torch.analysis import sanitize as san
+        word = san.step_word(cfg, state, new_state, new_clients)
+        if san_word is None:
+            san.report(word)
+        else:
+            san.merge_(san_word, word)
 
     return new_state, new_clients, stats, AccessResult(
         hit=hit.reshape(G, C), value=result_vals.reshape(G, C, -1),
@@ -855,7 +888,7 @@ def _captured_step(step, key, carry, xs) -> _Captured:
     def run():
         new, y = step(carry_s, x_s)
         for dst, src in zip(leaves, _leaves(new)):
-            if src is dst:
+            if src is dst or src.numel() == 0:      # (no storage to alias)
                 continue
             if src.untyped_storage().data_ptr() in inputs:
                 raise RuntimeError("a step output aliases its input carry")
@@ -912,6 +945,33 @@ def _scan(step, carry, xs, key):
     return _rebuild(carry, [t.clone() for t in cap.leaves]), ys
 
 
+def _san_carry(cfg: CacheConfig, dev) -> tuple:
+    """A trace driver's optional carry part: with ``cfg.sanitize``, the
+    sanitizer's word (``analysis/sanitize.py``), else nothing."""
+    if not cfg.sanitize:
+        return ()
+    from repro_torch.analysis import sanitize as san
+    return (san.Word(san.new_word(dev)),)
+
+
+def _trace_carry(cfg: CacheConfig, state, clients, dev) -> tuple:
+    """A trace driver's carry: (state, clients, fresh stats[, word])."""
+    return (state, clients, init_stats(dev)) + _san_carry(cfg, dev)
+
+
+def _san_kw(san: list) -> dict:
+    """The step's ``san_word`` argument from the carry's optional part."""
+    return {"san_word": san[0].word} if san else {}
+
+
+def _read_word(san: list) -> None:
+    """After a sanitized segment: raise the first failure its steps
+    recorded (one host read), or defer it inside ``sanitize.checked``."""
+    if san:
+        from repro_torch.analysis import sanitize as san_mod
+        san_mod.report(san[0].word)
+
+
 def _trace_inputs(keys, is_write, obj_size, tenant):
     """The op tensors of a trace, with the defaults filled in."""
     z = torch.zeros_like(keys)
@@ -930,19 +990,22 @@ def _run_trace_impl(cfg: CacheConfig, state: CacheState,
     ops per round and lane ([T, C] bool) instead of per round."""
 
     def step(carry, xs):
-        st, cl, sa = carry
+        st, cl, sa, *san = carry
         k, w, sz, tn = (x[None] for x in xs)
         st, cl, sa, res = access_group_(cfg, st, cl, sa, k, is_write=w,
-                                        obj_size=sz, tenant=tn)
+                                        obj_size=sz, tenant=tn,
+                                        **_san_kw(san))
+        carry = (st, cl, sa, *san)
         if by_lane:
-            return (st, cl, sa), (res.hit[0], k[0] != 0, st.weights)
-        return (st, cl, sa), (res.hit.sum(), (k != 0).sum(), st.weights)
+            return carry, (res.hit[0], k[0] != 0, st.weights)
+        return carry, (res.hit.sum(), (k != 0).sum(), st.weights)
 
     C = keys.shape[1]
-    (state, clients, stats), ys = _scan(
-        step, (state, clients, init_stats(keys.device)),
+    (state, clients, stats, *san), ys = _scan(
+        step, _trace_carry(cfg, state, clients, keys.device),
         _trace_inputs(keys, is_write, obj_size, tenant),
         ("access", cfg, by_lane))
+    _read_word(san)
     if ys is None:
         ys = _empty_ys(cfg, keys.device, (C,) if by_lane else ())
     return TraceResult(state, clients, stats, *ys)
@@ -960,19 +1023,21 @@ def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
     NG, G, C = keys.shape
 
     def step(carry, xs):
-        st, cl, sa = carry
+        st, cl, sa, *san = carry
         k, w, sz, tn = xs
         st, cl, sa, res = access_group_(cfg, st, cl, sa, k, is_write=w,
-                                        obj_size=sz, tenant=tn)
+                                        obj_size=sz, tenant=tn,
+                                        **_san_kw(san))
+        carry = (st, cl, sa, *san)
         if by_lane:
-            return (st, cl, sa), (res.hit, k != 0, st.weights)
-        return (st, cl, sa), (res.hit.sum(dim=1), (k != 0).sum(dim=1),
-                              st.weights)
+            return carry, (res.hit, k != 0, st.weights)
+        return carry, (res.hit.sum(dim=1), (k != 0).sum(dim=1), st.weights)
 
-    (state, clients, stats), ys = _scan(
-        step, (state, clients, init_stats(keys.device)),
+    (state, clients, stats, *san), ys = _scan(
+        step, _trace_carry(cfg, state, clients, keys.device),
         _trace_inputs(keys, is_write, obj_size, tenant),
         ("access_group", cfg, by_lane))
+    _read_word(san)
     lane = (C,) if by_lane else ()
     if ys is None:
         ys = _empty_ys(cfg, keys.device, (G,) + lane)

@@ -10,8 +10,11 @@ A torch port of ``repro/core/execute.py``.  ``plan`` schedules the
 a width per window from ``workloads/plan.py``, and a ``GroupPlan`` or
 ``SegmentSchedule`` runs as given.  Each segment is a Python loop of
 ``core/cache.py`` steps (PyTorch runs eagerly, so the JAX package's jit
-runner cache has no counterpart here).  The DM ``Cluster`` branch is a
-later item of the port.
+runner cache has no counterpart here).  Given a ``repro_torch.dm.Cluster``
+instead of a cache, the [T, S*lanes] trace runs through the DM router
+and the shards' steps under the cluster's membership
+(``dm/sharded_cache.py::dm_execute``), as the JAX package's Cluster
+branch does.
 
 Every tensor of a handle lives on one device.  ``make`` puts it on the
 card unless the caller names another device; with no card it raises.
@@ -161,6 +164,47 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _execute_cluster(cluster, trace, *, plan, exec_cfg, is_write, sizes,
+                     tenants) -> ExecResult:
+    """The Cluster branch of :func:`execute`: one ``Cluster.execute``
+    (``dm_execute``) run under the handle's membership (replica fan-out,
+    re-routes and dead-shard bounces all ride the routing maps).  The DM
+    router packs each destination's requests itself, so ``plan`` must be
+    left unset or None."""
+    if plan is not _UNSET and plan is not None:
+        raise ValueError(
+            "execute(Cluster, ...) runs the DM router, which packs "
+            "per-destination request groups itself; pass plan=None (or "
+            "omit it)")
+    xc = exec_cfg if exec_cfg is not None else cluster.cfg.split()[1]
+    keys = np.asarray(trace, np.uint32)
+    if keys.ndim != 2:
+        raise ValueError(f"trace must be [T, S*lanes]; got {keys.shape}")
+    T, L = keys.shape
+    if L % cluster.n_shards != 0:
+        raise ValueError(
+            f"trace width {L} not divisible by n_shards={cluster.n_shards}")
+    warm_key = ("cluster", cluster.local, cluster.n_shards, xc.route_factor,
+                keys.shape, str(cluster.device))
+    was_warm = warm_key in _WARM
+    _sync(cluster.device)
+    t0 = time.perf_counter()
+    new_cluster, hits = cluster.execute(keys, is_write, sizes, tenants,
+                                        route_factor=xc.route_factor)
+    hits = hits.cpu().numpy()
+    wall = time.perf_counter() - t0
+    _WARM.add(warm_key)
+
+    ops = (keys != 0).sum(axis=1).astype(np.int32)
+    n_req = int(ops.sum())
+    windows = (dict(start=0, stop=T, width=1, n_steps=T, n_requests=n_req,
+                    fill=1.0, wall_s=wall,
+                    us_per_call=wall * 1e6 / max(n_req, 1),
+                    compiled=not was_warm),)
+    return ExecResult(new_cluster, hits.sum(axis=1).astype(np.int32), ops,
+                      np.zeros((0,), np.float32), windows, 0.0, wall, None)
+
+
 def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
             is_write=None, sizes=None, tenants=None,
             model: Optional[PlanCostModel] = None,
@@ -168,7 +212,10 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
     """Execute a [T, C] request trace against a cache, planned.
 
     Args:
-      cache: :class:`Cache` handle (or (cfg, state, clients, stats)).
+      cache: :class:`Cache` handle (or (cfg, state, clients, stats)), or
+        a ``repro_torch.dm.Cluster``: the trace is then [T, S*lanes] and
+        runs through the DM router under the cluster's membership
+        (``_execute_cluster``).
       trace: u32[T, C] keys (numpy); 0 marks a padded no-op lane.
       plan: ``"adaptive" | "strict" | "lane" | None``, or a precomputed
         ``GroupPlan`` / ``SegmentSchedule``.  Defaults to
@@ -184,6 +231,11 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
     Returns an :class:`ExecResult`; ``hits``/``ops`` are per executed
     round, in the schedule's round order.
     """
+    from repro_torch.dm.cluster import Cluster
+    if isinstance(cache, Cluster):
+        return _execute_cluster(cache, trace, plan=plan, exec_cfg=exec_cfg,
+                                is_write=is_write, sizes=sizes,
+                                tenants=tenants)
     cache = _as_cache(cache)
     if exec_cfg is None:
         exec_cfg = cache.cfg.split()[1]

@@ -15,7 +15,7 @@ as well; f32 columns stay f32.  Narrowing the storage to 4 bytes is
 left for later work.
 
 ``state_from_numpy`` / ``state_to_numpy`` (and the ``clients_*`` /
-``stats_*`` pairs) carry the JAX package's pytrees, as numpy arrays,
+``stats_*`` / ``dm_*`` pairs) carry the JAX package's pytrees, as numpy arrays,
 into this package's tensors on a given device and back, with the JAX
 dtypes restored on the way out.  Every constructor here builds on the
 card unless the caller names a device (``device="cpu"``), and raises
@@ -377,7 +377,8 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 def _from_numpy(cls, tree, device):
     device = on_device(device, f"{cls.__name__} from numpy")
-    return cls(*[_to_tensor(getattr(tree, f), device) for f in cls._fields])
+    get = tree.__getitem__ if isinstance(tree, dict) else tree.__getattribute__
+    return cls(*[_to_tensor(get(f), device) for f in cls._fields])
 
 
 def _to_numpy(tree, dtypes) -> dict:
@@ -410,3 +411,21 @@ def stats_from_numpy(tree, device=None) -> OpStats:
 
 def stats_to_numpy(stats: OpStats) -> dict:
     return _to_numpy(stats, {f: np.int64 for f in OpStats._fields})
+
+
+def dm_from_numpy(tree, device=None):
+    """The JAX package's ``DMCache`` (or numpy arrays of its leaves, or a
+    dict of ``state``/``clients``/``stats`` dicts) -> the port's
+    ``DMCache``: the slot columns global, the per-shard scalars [S]."""
+    from repro_torch.dm.sharded_cache import DMCache
+    get = tree.__getitem__ if isinstance(tree, dict) else tree.__getattribute__
+    return DMCache(state_from_numpy(get("state"), device),
+                   clients_from_numpy(get("clients"), device),
+                   stats_from_numpy(get("stats"), device))
+
+
+def dm_to_numpy(dm) -> dict:
+    """A port ``DMCache`` as numpy dicts, with the JAX dtypes."""
+    return {"state": state_to_numpy(dm.state),
+            "clients": clients_to_numpy(dm.clients),
+            "stats": stats_to_numpy(dm.stats)}

@@ -4,7 +4,8 @@ which shapes a flat stream into [T, C] concurrent-client steps, the
 expert-friendly streams (``lru_friendly``, ``scan_polluted_zipf``), the
 tenant workloads and their mix (``flash_crowd``, ``shifting_zipf``,
 ``tenant_mix``) and the sized streams (``object_sizes``,
-``sized_zipfian``).
+``sized_zipfian``), and the DM placement helpers (``shard_of``,
+``keys_owned_by``, ``failover_trace``).
 
 The port's own copy of the generators it needs from
 ``repro/workloads/gen.py``; the same seeds give identical arrays.  Keys
@@ -273,3 +274,58 @@ def sized_zipfian(n_requests: int, n_keys: int, theta: float = 0.99,
     else:
         raise ValueError(f"unknown size_dist {size_dist!r}")
     return keys, sizes
+
+
+def _mix32(x: np.ndarray) -> np.ndarray:
+    """Host-side splitmix32 (``core.hashing.splitmix32``) in uint64
+    arithmetic, so numpy never warns on the intended wraparound."""
+    M = np.uint64(0xFFFFFFFF)
+    x = np.asarray(x, np.uint64) & M
+    x = (x + np.uint64(0x9E3779B9)) & M
+    x = ((x ^ (x >> np.uint64(16))) * np.uint64(0x85EBCA6B)) & M
+    x = ((x ^ (x >> np.uint64(13))) * np.uint64(0xC2B2AE35)) & M
+    x = x ^ (x >> np.uint64(16))
+    return (x & M).astype(np.uint32)
+
+
+def shard_of(keys: np.ndarray, n_shards: int, n_buckets: int) -> np.ndarray:
+    """Home shard per key under the DM placement: hash -> global bucket
+    -> contiguous bucket range per shard (``dm/sharded_cache.py``)."""
+    kh = _mix32(np.asarray(keys, np.uint32))
+    bucket = (kh % np.uint32(n_buckets)).astype(np.int64)
+    return (bucket // (n_buckets // n_shards)).astype(np.int32)
+
+
+def keys_owned_by(shard: int, n: int, n_shards: int, n_buckets: int,
+                  seed: int = 0) -> np.ndarray:
+    """``n`` distinct uint32 keys homed on ``shard``: a deterministic
+    rejection scan from a seeded offset."""
+    start = 1 + (seed % 997) * 1_000_003
+    out = np.empty(0, np.uint32)
+    span = max(64 * n * n_shards, 1024)
+    while out.size < n:
+        cand = np.arange(start, start + span, dtype=np.uint64)
+        cand = (cand % np.uint64(2**32 - 1) + np.uint64(1)).astype(np.uint32)
+        cand = cand[shard_of(cand, n_shards, n_buckets) == shard]
+        out = np.concatenate([out, cand])
+        start += span
+    return out[:n]
+
+
+def failover_trace(n_steps: int, lanes_per_shard: int, n_shards: int,
+                   n_buckets: int, *, hot_shard: int = 0,
+                   hot_fraction: float = 0.5, n_hot: int = 64,
+                   n_keys: int = 4096, theta: float = 0.99,
+                   seed: int = 0) -> np.ndarray:
+    """[T, n_shards*lanes] trace with ``hot_fraction`` of its requests on
+    a zipfian core homed entirely on ``hot_shard`` (the shard a failover
+    run kills), the rest a scrambled zipfian over all shards."""
+    rng = np.random.default_rng(seed)
+    L = n_shards * lanes_per_shard
+    N = n_steps * L
+    hot_keys = keys_owned_by(hot_shard, n_hot, n_shards, n_buckets,
+                             seed=seed)
+    hot = hot_keys[rng.choice(n_hot, size=N, p=_zipf_probs(n_hot, theta))]
+    cold = zipfian(N, n_keys, theta, seed + 1)
+    keys = np.where(rng.random(N) < hot_fraction, hot, cold)
+    return keys.astype(np.uint32).reshape(n_steps, L)

@@ -37,9 +37,8 @@ static-shaped and feed the step loop of ``core/cache.py`` group by group.
 
 This is the port's own copy of ``repro/workloads/plan.py`` (the port
 imports nothing of the JAX package); the same inputs give the same
-plans.  The planner's ``validate`` option, which runs the JAX package's
-invariant sanitizer, is not carried over: the sanitizer is a later item
-of the port.
+plans.  The planners' ``validate`` option runs the SAN006 conflict
+checker (``analysis/sanitize.py::assert_plan_ok``) on the plan emitted.
 """
 
 from __future__ import annotations
@@ -113,7 +112,8 @@ def plan_groups(keys: np.ndarray, n_buckets: int, batch: int, *,
                 is_write: Optional[np.ndarray] = None,
                 sizes: Optional[np.ndarray] = None,
                 tenants: Optional[np.ndarray] = None,
-                lookahead: Optional[int] = None) -> GroupPlan:
+                lookahead: Optional[int] = None,
+                validate: bool = False) -> GroupPlan:
     """Greedily pack a [T, C] trace into bucket-disjoint [G, C] groups.
 
     Args:
@@ -129,6 +129,9 @@ def plan_groups(keys: np.ndarray, n_buckets: int, batch: int, *,
       lookahead: how far past a blocked request a lane may schedule
         ahead (default 4*batch).  Blocked requests and all later
         requests to the same key park until the next group.
+      validate: run the SAN006 conflict checker
+        (``analysis.sanitize.assert_plan_ok``) on the emitted plan and
+        raise on any violation.
     Returns:
       GroupPlan; every non-pad request of `keys` appears exactly once.
     """
@@ -210,9 +213,17 @@ def plan_groups(keys: np.ndarray, n_buckets: int, batch: int, *,
         g_sz = [np.ones((batch, C), np.uint32)]
         g_tn = [np.zeros((batch, C), np.uint32)]
         g_src = [np.full((batch, C), -1, np.int64)]
-    return GroupPlan(np.stack(g_keys), np.stack(g_wr), np.stack(g_sz),
+    plan = GroupPlan(np.stack(g_keys), np.stack(g_wr), np.stack(g_sz),
                      np.stack(g_src).astype(np.int32), batch, scope,
                      np.stack(g_tn) if carry_tenants else None)
+    return _validated(plan, n_buckets, validate)
+
+
+def _validated(plan: GroupPlan, n_buckets: int, validate: bool) -> GroupPlan:
+    if validate:
+        from repro_torch.analysis.sanitize import assert_plan_ok
+        assert_plan_ok(plan, n_buckets)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +305,8 @@ def pack_rows(keys: np.ndarray, n_buckets: int, batch: int, *,
               sizes: Optional[np.ndarray] = None,
               tenants: Optional[np.ndarray] = None,
               start: int = 0, stop: Optional[int] = None,
-              limit: Optional[np.ndarray] = None) -> GroupPlan:
+              limit: Optional[np.ndarray] = None,
+              validate: bool = False) -> GroupPlan:
     """Pack a [T, C] trace into lane-scope groups WITHOUT reordering.
 
     Rows are cut into maximal consecutive chunks of <= ``batch`` rows
@@ -307,7 +319,9 @@ def pack_rows(keys: np.ndarray, n_buckets: int, batch: int, *,
 
     ``start``/``stop`` restrict packing to a row range (used by the
     segment planner); ``limit`` injects a precomputed
-    :func:`_conflict_limits` array to avoid rescanning per segment.
+    :func:`_conflict_limits` array to avoid rescanning per segment;
+    ``validate`` runs the SAN006 checker on the plan (as
+    :func:`plan_groups`).
     """
     keys = np.asarray(keys, np.uint32)
     T, C = keys.shape
@@ -336,8 +350,9 @@ def pack_rows(keys: np.ndarray, n_buckets: int, batch: int, *,
         gn[i, :n] = tenants[s:e]
         gt[i, :n] = np.where(keys[s:e] != 0,
                              np.arange(s, e, dtype=np.int32)[:, None], -1)
-    return GroupPlan(gk, gw, gs, gt, batch, "lane",
+    plan = GroupPlan(gk, gw, gs, gt, batch, "lane",
                      gn if carry_tenants else None)
+    return _validated(plan, n_buckets, validate)
 
 
 class PlanCostModel:
@@ -517,7 +532,8 @@ def plan_adaptive(keys: np.ndarray, n_buckets: int, max_batch: int, *,
                   model: Optional[PlanCostModel] = None,
                   hr_budget: float = 0.02,
                   capacity: Optional[int] = None,
-                  min_gain: float = 1.4) -> SegmentSchedule:
+                  min_gain: float = 1.4,
+                  validate: bool = False) -> SegmentSchedule:
     """Pick a group width per window and materialize the schedule.
 
     Decision rule (DESIGN.md §13), per window of ``window`` rows: for
@@ -542,6 +558,7 @@ def plan_adaptive(keys: np.ndarray, n_buckets: int, max_batch: int, *,
     and acting on it costs real planning time and schedule churn.  A
     width has to promise a win comfortably outside the noise floor
     before the planner abandons the (always-safe) sequential fallback.
+    ``validate`` runs the SAN006 checker on every segment's plan.
     """
     t0 = time.perf_counter()
     keys = np.asarray(keys, np.uint32)
@@ -626,7 +643,7 @@ def plan_adaptive(keys: np.ndarray, n_buckets: int, max_batch: int, *,
         else:
             plan = pack_rows(keys, n_buckets, g, is_write=is_write,
                              sizes=sizes, tenants=tenants, start=a, stop=b,
-                             limit=limit)
+                             limit=limit, validate=validate)
             segments.append(Segment(a, b, g, plan))
         wi = wj + 1
 

@@ -299,16 +299,27 @@ def test_scan_and_execute_leave_the_callers_state_untouched():
 
 
 def test_unported_options_raise():
-    """The sanitizer and the DM layer's replica (shadow) ops are later
-    items of the port; each raises, naming its ROADMAP item."""
+    """What is still a later item of the port raises, naming its ROADMAP
+    item: the elastic runtime's drains and lane resize (item 14).  The
+    sanitizer and the replica (shadow) ops, once refused here, run."""
+    from repro_torch import elastic
+    from repro_torch.dm import Cluster
     keys = torch.ones((1, C), dtype=torch.int64)
     for kw, step_kw in ((dict(sanitize=True), {}),
                         ({}, dict(shadow=torch.zeros((1, C),
                                                      dtype=torch.bool)))):
         cfg = t_types.CacheConfig(n_buckets=64, assoc=4, capacity=96, **kw)
         st, cl, sa = t_cache.make_cache(cfg, C, 0, "cpu")
+        t_cache.access_group(cfg, st, cl, sa, keys, **step_kw)
+    cluster = Cluster.make(t_types.CacheConfig(n_buckets=64, assoc=4,
+                                               capacity=96), 4, 2,
+                           device="cpu")
+    for call in (lambda: cluster.drain_to(48), lambda: cluster.with_lanes(4),
+                 lambda: elastic.resize_memory(cluster.local, cluster.dm),
+                 lambda: elastic.enforce_budget(cluster.local, cluster.dm),
+                 lambda: elastic.resize_lanes(cluster.local, cluster.dm)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_cache.access_group(cfg, st, cl, sa, keys, **step_kw)
+            call()
 
 
 def _stats_pair(seed: int, shape=()):

@@ -1002,3 +1002,138 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         runs["cpu"], runs[str(cuda)])
     assert card_out == cpu_out and card_ev == cpu_ev > 0
     assert min(launches[k] for k in CACHE_KERNELS) > 0
+
+
+# ---------------------------------------------------------------------------
+# The DM layer on the card: the sharded pool's group step, S shard steps in
+# one captured graph.
+# ---------------------------------------------------------------------------
+
+DM_S, DM_LANES = 4, 8
+
+
+def _dm_cfg(**kw):
+    kw = dict(dict(n_buckets=64, assoc=4, capacity=96, sync_period=8,
+                   n_tenants=2, tenant_budget_blocks=(64, 64),
+                   l0_entries=4), **kw)
+    return CacheConfig(**kw)
+
+
+def _dm_trace(n_groups, G=4, seed=3):
+    rng = np.random.default_rng(seed)
+    shape = (n_groups, G, DM_S * DM_LANES)
+    keys = gen.zipfian(int(np.prod(shape)), 300, 0.9, seed).reshape(shape)
+    return (torch.as_tensor(keys.astype(np.int64)),
+            torch.as_tensor(rng.random(shape) < 0.3),
+            torch.as_tensor(rng.integers(1, 8, shape)),
+            torch.as_tensor((keys % 2).astype(np.int64)))
+
+
+def _dm_run(dev, cfg, trace):
+    """Two segments with a replica election, a failure, its detection and
+    a rewarmed recovery between them."""
+    from repro_torch.dm import Cluster
+    cl = Cluster.make(cfg, DM_S, DM_LANES, 5, device=dev)
+    keys, wr, sz, ten = (x.to(dev) for x in trace)
+    cl, h1 = cl.execute(keys[:6], wr[:6], sz[:6], ten[:6])
+    loads = np.bincount(gen._mix32(trace[0][:6].numpy()).ravel()
+                        % cfg.n_buckets, minlength=cfg.n_buckets)
+    cl = cl.elect_replicas(loads, 12).inject_failure(1)
+    cl, h2 = cl.execute(keys[6:9], wr[6:9], sz[6:9], ten[6:9])
+    cl = cl.mark_failed(1)
+    cl, h3 = cl.execute(keys[9:14], wr[9:14], sz[9:14], ten[9:14])
+    cl, rep = cl.recover(1, rewarm=True)
+    cl, h4 = cl.execute(keys[14:], wr[14:], sz[14:], ten[14:])
+    return cl, torch.cat([h1, h2, h3, h4]).cpu(), rep
+
+
+def _same_dm(a, b):
+    x, y = t_types.dm_to_numpy(a.dm), t_types.dm_to_numpy(b.dm)
+    for part in x:
+        for f in x[part]:
+            if x[part][f].dtype.kind == "f":
+                np.testing.assert_array_max_ulp(x[part][f], y[part][f],
+                                                maxulp=16)
+            else:
+                assert np.array_equal(x[part][f], y[part][f]), (part, f)
+
+
+@pytest.mark.cuda
+def test_dm_trace_on_the_card_matches_the_cpu(cuda):
+    """Two tenants, L0, replicas and a failover on 4 shards x 8 lanes:
+    the card's fused and reference runs equal the CPU's; the fused run
+    launches each cache kernel once a shard step (S a DM step), plus one
+    warm-up DM step when the segment's graph is captured."""
+    from repro_torch.core import cache as core_cache
+    trace = _dm_trace(20)
+    cpu = _dm_run("cpu", _dm_cfg(), trace)
+    for backend in ("fused", "reference"):
+        ops.reset_launches()
+        n_graphs = len(core_cache._GRAPHS)
+        card = _dm_run(cuda, _dm_cfg(backend=backend), trace)
+        captured = len(core_cache._GRAPHS) - n_graphs
+        assert torch.equal(card[1], cpu[1])
+        assert tuple(card[2]) == tuple(cpu[2]) and card[2].drained_objects > 0
+        _same_dm(card[0], cpu[0])
+        want = DM_S * (20 + captured) if backend == "fused" else 0
+        assert ops.launches() == {k: want * CACHE_KERNELS.get(k, 0)
+                                  for k in ops.launches()}
+    st = cpu[0].stats
+    assert int(st.evictions) > 0 and int(st.replica_writes) > 0
+    assert int(st.gets + st.sets + st.route_drops) == int(
+        (trace[0] != 0).sum())
+
+
+@pytest.mark.cuda
+def test_a_membership_change_replays_the_same_graph(cuda):
+    """Replicas, a failure and its detection change the routed inputs
+    only: the DM step is captured once, and a later segment launches each
+    kernel exactly S times a step (no warm-up)."""
+    from repro_torch.core import cache as core_cache
+    from repro_torch.dm import Cluster
+    cfg = _dm_cfg(l0_entries=0, n_tenants=1, tenant_budget_blocks=(),
+                  fc_threshold=7)
+    keys, wr, _, _ = (x.to(cuda) for x in _dm_trace(12))
+    cl = Cluster.make(cfg, DM_S, DM_LANES, 5, device=cuda)
+    cl, _ = cl.execute(keys[:3], wr[:3])
+    n_graphs = len(core_cache._GRAPHS)
+    for change in (lambda c: c.elect_replicas(np.arange(cfg.n_buckets), 16),
+                   lambda c: c.inject_failure(2), lambda c: c.mark_failed(2),
+                   lambda c: c.recover(2)[0]):
+        cl = change(cl)
+        ops.reset_launches()
+        cl, _ = cl.execute(keys[3:6], wr[3:6])
+        assert ops.launches() == {k: 3 * DM_S * CACHE_KERNELS.get(k, 0)
+                                  for k in ops.launches()}
+    assert len(core_cache._GRAPHS) == n_graphs
+
+
+@pytest.mark.cuda
+def test_a_sanitized_dm_segment_raises_on_a_corrupted_carry(cuda):
+    """The armed DM step folds each shard's checks into the carried word,
+    read once after the segment: a clean run (a pool the trace's 300 keys
+    fit in) equals the unarmed one, and a duplicated live key in one
+    bucket of shard 2 raises SAN003."""
+    import dataclasses
+    from repro_torch.analysis.sanitize import SanitizerError
+    from repro_torch.dm import Cluster
+    cfg = _dm_cfg(n_buckets=256, capacity=512, l0_entries=0, n_tenants=1,
+                  tenant_budget_blocks=())
+    keys, wr, _, _ = (x.to(cuda) for x in _dm_trace(8))
+    scfg = dataclasses.replace(cfg, sanitize=True)
+    a, ha = Cluster.make(cfg, DM_S, DM_LANES, 5, device=cuda).execute(
+        keys, wr)
+    b, hb = Cluster.make(scfg, DM_S, DM_LANES, 5, device=cuda).execute(
+        keys, wr)
+    assert torch.equal(ha, hb)
+    _same_dm(a, b)
+    ls, A = b.local.n_slots, cfg.assoc
+    size = b.dm.state.size[2 * ls:3 * ls]
+    live = ((size != 0) & (size != 255)).reshape(-1, A)
+    bkt = int(torch.nonzero(live.sum(dim=1) >= 2)[0, 0])
+    i, j = (2 * ls + bkt * A + torch.nonzero(live[bkt])[:2, 0]).tolist()
+    key = b.dm.state.key.clone()
+    key[j] = key[i]
+    bad = b._replace(dm=b.dm._replace(state=b.dm.state._replace(key=key)))
+    with pytest.raises(SanitizerError, match="SAN003"):
+        bad.execute(keys[:2], wr[:2])
