@@ -18,7 +18,12 @@ from an older checkout's ``src/`` (the before of a change to the step).
 Phases, each of which raises (exit code != 0) on any failure:
 
 1. Build: the hand-written CUDA kernels of ``src/repro_torch/kernels/csrc``
-   compile with nvcc (one process per source, all at once).
+   compile with nvcc (one process per source, all at once).  Then the
+   float sums that follow XLA's CPU order (``core/cache.py``'s
+   ``_seqsum``, ``_xla_sum0``, the sum and scan over E, ``_expert_cdf``,
+   ``apply_penalties``' normalisation and the drain's tenant mean) on
+   the card against a host f32 loop, at 1 to 128 rows, E = 1 to 8, with
+   no, one and three columns: every output bit-equal.
 2. Per-kernel check: the cache step's four kernels, ``access_probe``
    (alone, and with the insert path's bucket facts: every expert
    choice's bucket argmin, E included), ``hit_metadata_update`` (in
@@ -183,26 +188,51 @@ Phases, each of which raises (exit code != 0) on any failure:
    ``sanitize=True`` (fused) must raise nothing and equal the unarmed
    run bit for bit.  One eager fused DM step's operators are counted.
 12. Failover: ``benchmarks/elasticity.py``'s failover leg on phase 11's
-   cluster: ``failover_trace`` (70% of requests on 48 keys homed on shard
-   1, the rest zipf over 10M keys, seed 7), 192 windows of 16 rounds x
-   64 lanes, run as the benchmark's scenario driver runs them: a window of
-   16 rounds a ``Cluster.execute`` call, one DM step a round; shard 1
-   fails at window 64 (``inject_failure``), is marked failed at 68 and
-   recovers with a rewarm at 128; a replicated arm (96 hot buckets
-   elected from windows 0-63's request counts) against a control.  The
-   benchmark's three assertions on per-window hit ratios
-   (the replicated dip shallower by more than 2 pp, fewer route drops,
-   a rerouted-window hit ratio no worse by more than 0.02), the
-   accounting, a rewarm that moved objects, and no re-capture of the
-   graph across the membership changes.  Then a copy with a duplicated
-   live key in one bucket, run with ``sanitize=True``, must raise SAN003
-   when its segment ends.
+   cluster shape, through ``run_scenario`` as the benchmark runs it:
+   ``failover_trace`` (70% of requests on 48 keys homed on shard 1, the
+   rest zipf over 10M keys, seed 7), 192 windows of 16 rounds x 64
+   lanes, a DM step a round; shard 1 fails at window 64 and recovers
+   with a rewarm at 128; a ``HealthMonitor(8)`` (two missed beats)
+   marks it failed at the end of window 65, so routing to it stops from
+   window 66; a replicated arm (96 hot buckets re-elected from the load
+   EMA at every window) against a control.  The benchmark's three
+   assertions on per-window hit ratios (the replicated dip shallower by
+   more than 2 pp, fewer route drops, a rerouted-window hit ratio no
+   worse by more than 0.02), the accounting, the detection window, a
+   rewarm that moved objects, and no re-capture of the graph across the
+   membership changes.  Then a copy with a duplicated live key in one
+   bucket, run with ``sanitize=True``, must raise SAN003 when its
+   segment ends.
+13. The elastic pool.  (a) On phase 11's final fused cluster (8 shards
+   x 8 lanes, 2,097,152 slots, capacity 1,048,576): ``with_lanes(16)``
+   and ``drain_to(2,097,152)``, which must be a write of the capacity
+   alone (no drain step, no migration, every other leaf the same
+   tensor); 64 groups of [32, 128] of more of phase 11's YCSB-A (its
+   key permutation, fresh draws); ``with_lanes(8)`` (the flush) and
+   ``drain_to(524,288, batch_per_shard=512)``; ``enforce_budget``,
+   which must drain nothing; 64 groups of [32, 64].  Checked: every
+   shard within its capacity after the drain and within one group's
+   requests of it at the end; ``n_cached``, ``bytes_cached`` and
+   ``tenant_bytes`` equal a recount from the columns; no migration;
+   ``evictions`` and ``hist_ctr`` moved a shard by its drained objects;
+   no drained object ranked above a survivor under its shard's dominant
+   expert; the lane flush and the first 8 drain steps bit-equal to the
+   same calls on a host copy (the CPU leg); each cache kernel launched 8
+   times a DM step in both segments, plus one capture at the new width.
+   (b) ``benchmarks/elasticity.py``'s own grow -> shrink leg through
+   ``run_scenario`` (YCSB-C, 60,000 requests over 20,000 keys, 4,096
+   buckets x 8, one shard, lanes 32 -> 64 -> 32, capacity 8,192 ->
+   16,384 -> 4,096, windows of T // 40 rounds), with its assertions (no
+   migration, a drain at the shrink, ``n_cached`` at most 4,096 + 64
+   after it), run without and with a ``WidthController``: every window
+   equal between the two.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
 counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
-engine's, phase 9's, 10's and 11's) and read just after it.
+engine's, phase 9's, 10's, 11's, 12's arms and 13's segments and
+scenario runs) and read just after it.
 
 The second-to-last line is the kernels' JSON record (each with the
 launch floor, ``floor_ms``), the last line
@@ -287,7 +317,14 @@ DM_REQUESTS = 6_000_000
 DM_SAN_GROUPS = 64
 DM_BALANCE = 0.05       # the most the shards' n_cached may spread, / mean
 FAIL_GROUPS, FAIL_WINDOW, FAIL_SHARD, FAIL_HOT = 192, 16, 1, 96
-FAIL_AT, DETECT_AT, RECOVER_AT = 64, 68, 128
+FAIL_AT, RECOVER_AT = 64, 128
+# Phase 13: benchmarks/elasticity.py's grow -> shrink leg (lanes 32 -> 64
+# -> 32 in all, capacity x2 then a quarter of that) on phase 11's cluster;
+# the drain's batch is the benchmark's 64 at 32,768 slots a shard, scaled
+# to 262,144.  The CPU leg repeats the lane flush and the first drain steps.
+ELASTIC_LANES, ELASTIC_GROUPS, ELASTIC_BATCH = (16, 8), 64, 512
+ELASTIC_CPU_STEPS = 8
+SCENARIO_REQUESTS, SCENARIO_KEYS = 60_000, 20_000
 ENGINE = dict(requests=24, prompt=96, shared=48, new=16, lanes=4,
               page_size=16, pool_pages=32)
 
@@ -457,6 +494,89 @@ def apply_groups(rng, dev, n: int, B: int, keys, ts, u32, K: int = 5):
                 (idx[1], cols, ins_src, masks[0]),
                 (idx[2], (size, ptr, ins), ev_src, masks[1]))
     return groups
+
+
+# The float sums of the step, the weight sync and the drain, in XLA's CPU
+# order (f32 adds one at a time): held against a host f32 loop.
+REDUCE_ROWS = (1, 2, 4, 7, 31, 32, 33, 40, 64, 65, 100, 128)
+
+
+def check_reductions(dev) -> dict:
+    """The F1 check: ``core/cache.py``'s ordered sums on the card
+    (``_seqsum``, ``_xla_sum0``, ``_seqsum_last``, ``_seqcumsum_last``,
+    ``_expert_cdf``, ``apply_penalties``' normalisation and the drain's
+    ``_tenant_mean``) against a host f32 loop in numpy on the same
+    seeded inputs, at 1 to 128 rows and E = 1 to 8, with 1 and 3 columns
+    (a lone column takes the widened path): every output bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cache
+    from repro_torch.elastic.resize import _tenant_mean
+
+    f32 = np.float32
+
+    def seq(x):                              # rows in order, f32
+        acc = x[0].copy()
+        for row in x[1:]:
+            acc = (acc + row).astype(f32)
+        return acc
+
+    def xla0(x):
+        return seq(np.stack([seq(x[a:b]) for a, b in cache._xla_chunks(
+            x.shape[0])]))
+
+    def cum_last(x):
+        out = x.copy()
+        for i in range(1, x.shape[-1]):
+            out[..., i] = (out[..., i - 1] + x[..., i]).astype(f32)
+        return out
+
+    def sum_last(x):
+        return seq(np.moveaxis(x, -1, 0))
+
+    def norm(w):
+        w = np.maximum(w, f32(1e-4))
+        return (w / sum_last(w)[..., None]).astype(f32)
+
+    def cdf(w):
+        s = np.maximum(sum_last(w), f32(1e-30))
+        return cum_last((w / s[..., None]).astype(f32))
+
+    cases = {
+        "seqsum": (cache._seqsum, seq),
+        "xla_sum0": (cache._xla_sum0, xla0),
+        "seqsum_last": (cache._seqsum_last, sum_last),
+        "seqcumsum_last": (cache._seqcumsum_last, cum_last),
+        "expert_cdf": (cache._expert_cdf, cdf),
+        "apply_penalties": (lambda w: cache.apply_penalties(
+            w, torch.zeros_like(w), 0.1), norm),
+        "tenant_mean": (_tenant_mean, lambda x: (xla0(x) * (
+            f32(1) / f32(x.shape[0]))).astype(f32)),
+    }
+    rng = np.random.default_rng(SEED)
+    n = bad = 0
+    worst = []
+    for R in REDUCE_ROWS:
+        for E in range(1, 9):
+            for cols in ((), (1,), (3,)):
+                x = (rng.random((R,) + cols + (E,), dtype=f32)
+                     * rng.choice(f32([1e-3, 1.0, 1e3]), (R,) + cols + (E,)))
+                xt = torch.from_numpy(x).to(dev)
+                for name, (fn, host) in cases.items():
+                    got = fn(xt).cpu().numpy()
+                    want = host(x)
+                    n += 1
+                    if got.shape != want.shape or not np.array_equal(
+                            got.view(np.int32), want.view(np.int32)):
+                        bad += 1
+                        worst.append((name, R, E, cols))
+    log(f"F1: {n} cases of the ordered sums on the card ({len(cases)} "
+        f"functions, rows {REDUCE_ROWS[0]}-{REDUCE_ROWS[-1]}, E = 1-8): "
+        f"{n - bad} bit-equal to a host f32 loop")
+    if bad:
+        raise AssertionError(f"F1: {bad} of {n} ordered sums differ from a "
+                             f"host f32 loop on the card: {worst[:8]}")
+    return dict(cases=n, rows=list(REDUCE_ROWS), experts=8)
 
 
 def check_kernels(dev, results: dict) -> float:
@@ -1818,11 +1938,12 @@ def profile_dm(dev, card: str, cfg, k3, w3, n_groups: int,
 
 
 def run_dm(dev, card: str, results: dict, profile: int = 0,
-           out_dir: Path | None = None) -> dict:
+           out_dir: Path | None = None) -> tuple:
     """Phase 11: YCSB-A through ``Cluster.execute`` on an 8 x 8 cluster
     of phase 3's table, both backends, then the sanitize-armed re-run of
     its first groups; ``profile``: then trace that many fused DM steps
-    (and twice as many)."""
+    (and twice as many).  Returns (the phase's numbers, the fused run's
+    final cluster and its YCSB-A keys), phase 13's start."""
     import dataclasses
     import numpy as np
     import torch
@@ -1873,6 +1994,8 @@ def run_dm(dev, card: str, results: dict, profile: int = 0,
             f"{int(s.route_drops)}, evictions {per.evictions.tolist()}, "
             f"n_cached {n_cached}, launches {launches}")
         runs[backend] = (hits, dm_parts(cl))
+        if backend == "fused":
+            fused = cl
         if int(s.gets + s.sets + s.route_drops) != issued:
             raise AssertionError(f"phase 11 {backend}: gets + sets + "
                                  f"route_drops != {issued} issued")
@@ -1917,102 +2040,111 @@ def run_dm(dev, card: str, results: dict, profile: int = 0,
         f"{out['step_ops']['operators']} operators "
         f"({out['step_ops']['device_ops']} neither an allocation nor a "
         f"view); phase wall {out['wall_s']:.1f} s")
-    return out
+    return out, fused, keys
 
 
 def run_failover(dev, card: str, results: dict) -> dict:
     """Phase 12: ``benchmarks/elasticity.py``'s failover leg on phase 11's
-    cluster, a replicated arm against a control: windows of 16 rounds,
-    each round one DM step, as the benchmark's scenario driver runs
-    them."""
+    cluster shape, a replicated arm against a control, through
+    ``run_scenario`` as the benchmark runs it: windows of 16 rounds, a
+    ``HealthMonitor`` that marks the failed shard after two missed beats
+    (the window-end observations of the failure's window and the next),
+    and the replicas re-elected from the load EMA at every window."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.analysis.sanitize import SanitizerError
     from repro_torch.core import CacheConfig
     from repro_torch.core import cache as core_cache
-    from repro_torch.core.types import stats_delta
-    from repro_torch.dm import Cluster
+    from repro_torch.elastic import HealthMonitor, run_scenario
     from repro_torch.kernels import ops
-    from repro_torch.workloads.gen import _mix32, failover_trace
+    from repro_torch.workloads.gen import failover_trace
 
     t_phase = time.perf_counter()
     S, W = DM_SHARDS, FAIL_WINDOW
-    trace = failover_trace(FAIL_GROUPS * W, DM_LANES, S, N_BUCKETS,
-                           hot_shard=FAIL_SHARD, hot_fraction=0.7, n_hot=48,
-                           n_keys=N_KEYS, seed=7)
-    kt = torch.as_tensor(trace.astype(np.int64), device=dev)
+    T = FAIL_GROUPS * W
+    trace = failover_trace(T, DM_LANES, S, N_BUCKETS, hot_shard=FAIL_SHARD,
+                           hot_fraction=0.7, n_hot=48, n_keys=N_KEYS, seed=7)
     issued = int((trace != 0).sum())
-    loads = np.bincount((_mix32(trace[:FAIL_AT * W]) % N_BUCKETS).ravel(),
-                        minlength=N_BUCKETS).astype(np.float64)
+    t_fail, t_rec = FAIL_AT * W, RECOVER_AT * W
+    timeline = [(t_fail, ("fail_shard", FAIL_SHARD)),
+                (t_rec, ("recover_shard", FAIL_SHARD))]
     cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY)
     log(f"phase 12: failover_trace, {issued} requests ({FAIL_GROUPS} "
-        f"windows of {W} rounds, a DM step each), shard {FAIL_SHARD} fails "
-        f"at window {FAIL_AT}, marked failed at {DETECT_AT}, recovers at "
-        f"{RECOVER_AT}")
-    out, graphs = dict(requests=issued), None
+        f"windows of {W} rounds) through run_scenario, shard {FAIL_SHARD} "
+        f"fails at window {FAIL_AT} and recovers at {RECOVER_AT}; a "
+        f"HealthMonitor detects it")
+    out = dict(requests=issued)
+    n_graphs = len(core_cache._GRAPHS)
     for k in CACHE_KERNELS:
         results[k]["launches_failover"] = 0
     for name, n_hot in (("replicated", FAIL_HOT), ("control", 0)):
-        cl = Cluster.make(cfg, S, DM_LANES, 7, device=dev)
-        ws, report, prev = [], None, cl.stats
         ops.reset_launches()
-        n_graphs = len(core_cache._GRAPHS)
+        graphs = len(core_cache._GRAPHS)
         t0 = time.perf_counter()
-        for g in range(FAIL_GROUPS):
-            if g == FAIL_AT:
-                if n_hot:
-                    cl = cl.elect_replicas(loads, n_hot)
-                cl = cl.inject_failure(FAIL_SHARD)
-            if g == DETECT_AT:
-                cl = cl.mark_failed(FAIL_SHARD)
-            if g == RECOVER_AT:
-                cl, report = cl.recover(FAIL_SHARD, rewarm=True)
-            cl, _ = cl.execute(kt[g * W:(g + 1) * W], route_factor=DM_ROUTE)
-            s = cl.stats
-            d = stats_delta(s, prev)
-            prev = s
-            ws.append(dict(t0=g * W, t1=(g + 1) * W,
-                           hit_rate=int(d.hits) / max(int(d.gets + d.sets), 1),
-                           route_drops=int(d.route_drops),
-                           routed=cl.routed[FAIL_SHARD]))
-            if graphs is None:
-                graphs = len(core_cache._GRAPHS)
+        res = run_scenario(cfg, trace.ravel(), timeline, n_shards=S,
+                           lanes_per_shard=DM_LANES, horizon=T, window=W,
+                           health=HealthMonitor(S), replicate_hot=n_hot,
+                           seed=7, device=dev)
+        torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         launches = cache_launches()
-        want = S * (FAIL_GROUPS * W + len(core_cache._GRAPHS) - n_graphs)
+        want = S * (T + len(core_cache._GRAPHS) - graphs)
         if any(n != want for n in launches.values()):
             raise AssertionError(f"phase 12 {name}: launches {launches}, "
                                  f"not {want} ({S} a DM step)")
         for k in CACHE_KERNELS:
             results[k]["launches_failover"] += launches[k]
-        t_fail, t_rec = FAIL_AT * W, RECOVER_AT * W
+        # benchmarks/elasticity.py's row, from the window dicts.
+        ws = res.windows
         pre = float(np.mean([w["hit_rate"] for w in ws
                              if w["t1"] <= t_fail and w["t0"] >= W]))
         outage = [w for w in ws if w["t0"] >= t_fail and w["t1"] <= t_rec]
-        detect = next((w["t1"] for w in ws if not w["routed"]), t_rec)
+        detect = next((w["t1"] for w in ws if not w["routed"][FAIL_SHARD]),
+                      t_rec)
         rerouted = [w for w in outage if w["t0"] >= detect]
-        s = cl.stats
+        after = [w for w in ws if w["t0"] >= t_rec]
+        marks = [e["t"] for e in res.events if e["event"] == "mark_failed"]
+        rewarm = next(e["report"] for e in res.events
+                      if e["event"] == "recover_shard")
         out[name] = dict(
             wall_s=wall, pre_fail_hit_rate=pre,
             dip_depth_pp=100 * (pre - min(w["hit_rate"] for w in outage)),
-            hit_rate=float(np.mean([w["hit_rate"] for w in rerouted])),
-            route_drops=int(s.route_drops),
-            replica_writes=int(s.replica_writes),
-            n_replicated=int((cl.replica_map() < S).sum()),
-            rewarm=dict(report._asdict()), launches=launches,
+            hit_rate=(float(np.mean([w["hit_rate"] for w in rerouted]))
+                      if rerouted else 0.0),
+            detect_windows=(detect - t_fail) // W, mark_failed_at=marks,
+            recover_windows=next((i for i, w in enumerate(after)
+                                  if w["hit_rate"] >= 0.9 * pre), len(after)),
+            route_drops=sum(w["route_drops"] for w in ws),
+            replica_writes=sum(w["replica_writes"] for w in ws),
+            n_replicated=max(w["n_replicated"] for w in ws),
+            enforced_evictions=sum(w["enforced_evictions"] for w in ws),
+            rewarm=rewarm, launches=launches,
             windows=[round(w["hit_rate"], 6) for w in ws])
         log(f"[{card}] phase 12 {name}: {FAIL_GROUPS} windows in {wall:.2f} "
             f"s; pre-failure hit ratio {pre:.4f}, dip "
-            f"{out[name]['dip_depth_pp']:.2f} pp, rerouted-window hit ratio "
-            f"{out[name]['hit_rate']:.4f}, route_drops "
-            f"{out[name]['route_drops']}, rewarm {tuple(report)}")
+            f"{out[name]['dip_depth_pp']:.2f} pp, marked failed at round "
+            f"{marks} (window {marks[0] // W if marks else None}), "
+            f"rerouted-window hit ratio {out[name]['hit_rate']:.4f}, "
+            f"route_drops {out[name]['route_drops']}, rewarm "
+            f"{tuple(rewarm.values())}")
+        s = res.cluster.stats
         if int(s.gets + s.sets + s.route_drops) != issued:
             raise AssertionError(f"phase 12 {name}: gets + sets + "
                                  f"route_drops != {issued} issued")
-        if report.drained_objects <= 0:
+        if marks != [(FAIL_AT + 2) * W]:
+            raise AssertionError(f"phase 12 {name}: the monitor marked the "
+                                 f"shard failed at rounds {marks}, not at "
+                                 f"window {FAIL_AT + 2} (two missed beats)")
+        if any(w["routed"][FAIL_SHARD] != (w["t1"] <= (FAIL_AT + 2) * W
+                                           or w["t0"] >= t_rec) for w in ws):
+            raise AssertionError(f"phase 12 {name}: routing to shard "
+                                 f"{FAIL_SHARD} did not stop from window "
+                                 f"{FAIL_AT + 2} to the recovery")
+        if rewarm["drained_objects"] <= 0:
             raise AssertionError(f"phase 12 {name}: the rewarm moved nothing")
-    if len(core_cache._GRAPHS) != graphs:
+        cl = res.cluster
+    if len(core_cache._GRAPHS) - n_graphs > 1:
         raise AssertionError("phase 12: a membership change re-captured the "
                              "DM step's graph")
     rep, ctl = out["replicated"], out["control"]
@@ -2028,6 +2160,7 @@ def run_failover(dev, card: str, results: dict) -> dict:
         raise AssertionError(f"phase 12: replicated recovery-window hit "
                              f"ratio {rep['hit_rate']:.4f} regressed from "
                              f"{ctl['hit_rate']:.4f}")
+    kt = torch.as_tensor(trace.astype(np.int64), device=dev)
 
     # A duplicated live key in one bucket of shard 0, on a copy: the
     # sanitize-armed run raises SAN003 when its segment ends.
@@ -2050,11 +2183,315 @@ def run_failover(dev, card: str, results: dict) -> dict:
         raise AssertionError("phase 12: a duplicated live key went unseen")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 12: the replicated arm dips {rep['dip_depth_pp']:.2f} pp "
-        f"against {ctl['dip_depth_pp']:.2f}, drops {rep['route_drops']} "
-        f"against {ctl['route_drops']}, rerouted hit ratio "
-        f"{rep['hit_rate']:.4f} against {ctl['hit_rate']:.4f}; no graph "
-        f"re-captured across the membership changes; the corrupted copy "
-        f"raised \"{out['sanitizer']}\"; phase wall {out['wall_s']:.1f} s")
+        f"against {ctl['dip_depth_pp']:.2f} (a fixed-delay detection at "
+        f"window 68 dipped 15.74 against 33.72), drops "
+        f"{rep['route_drops']} against {ctl['route_drops']}, rerouted hit "
+        f"ratio {rep['hit_rate']:.4f} against {ctl['hit_rate']:.4f}; "
+        f"detected at window {FAIL_AT + 2}; no graph re-captured across "
+        f"the membership changes; the corrupted copy raised "
+        f"\"{out['sanitizer']}\"; phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def cpu_copy(dm):
+    """A DMCache's leaves copied to the host."""
+    return type(dm)(*[type(part)(*[x.cpu().clone() for x in part])
+                      for part in dm])
+
+
+def recount(tag: str, dm, ls: int) -> None:
+    """n_cached, bytes_cached and tenant_bytes equal a recount from the
+    columns."""
+    import torch
+    st = dm.state
+    S = st.n_cached.shape[0]
+    live = ((st.size != 0) & (st.size != 255)).view(S, ls)
+    sz = torch.where(live, st.size.view(S, ls), 0)
+    tb = torch.zeros_like(st.tenant_bytes).scatter_add_(
+        1, st.tenant.view(S, ls), sz)
+    if not (torch.equal(live.sum(dim=1), st.n_cached)
+            and torch.equal(sz.sum(dim=1), st.bytes_cached)
+            and torch.equal(tb, st.tenant_bytes)):
+        raise AssertionError(f"phase 13 {tag}: n_cached, bytes_cached or "
+                             f"tenant_bytes differ from a recount")
+
+
+def dominant_priorities(cl):
+    """[S, local_slots] priorities of every slot under its shard's
+    dominant expert (the drain's order), and the live mask."""
+    import torch
+    from repro_torch.core import priority as prio
+    from repro_torch.core.types import MDView
+    st, S, ls = cl.dm.state, cl.n_shards, cl.local.n_slots
+    f = lambda c: c.view(S, ls).to(torch.float32)
+    md = MDView(size=f(st.size), insert_ts=f(st.insert_ts),
+                last_ts=f(st.last_ts), freq=f(st.freq),
+                ext=st.ext.view(S, ls, -1),
+                clock=st.clock[:, None].to(torch.float32),
+                gds_L=st.gds_L[:, None],
+                cost=torch.ones((S, ls), dtype=torch.float32,
+                                device=st.key.device))
+    pr = prio.priorities(md, cl.local.experts)
+    e = torch.argmax(st.weights, dim=1)
+    pe = torch.gather(pr, 2, e[:, None, None].expand(S, ls, 1))[..., 0]
+    return pe, ((st.size != 0) & (st.size != 255)).view(S, ls)
+
+
+def ycsb_a_continuation(keys11, n: int):
+    """More of phase 11's YCSB-A: the same scrambled zipf 0.99 over the
+    same 10M keys (phase 11's permutation, checked against its keys),
+    fresh draws from seed SEED + 1, 50% SETs."""
+    import numpy as np
+    from repro_torch.workloads.gen import _zipf_probs
+    p = _zipf_probs(N_KEYS, 0.99)
+    rng = np.random.default_rng(SEED)
+    ranks = rng.choice(N_KEYS, size=DM_REQUESTS, p=p)
+    perm = rng.permutation(N_KEYS)
+    if not np.array_equal((perm[ranks] + 1).astype(np.uint32), keys11):
+        raise AssertionError("phase 13: not phase 11's key permutation")
+    more = np.random.default_rng(SEED + 1)
+    keys = (perm[more.choice(N_KEYS, size=n, p=p)] + 1).astype(np.uint32)
+    return keys, more.random(n) < 0.5
+
+
+def run_elastic(dev, card: str, results: dict, cl, keys11,
+                profile: int = 0, out_dir: Path | None = None) -> dict:
+    """Phase 13: the elastic pool on the card.  (a) At full size, on phase
+    11's final fused cluster: lanes 8 -> 16 and capacity x2 (a scalar
+    write), 64 groups at 16 lanes a shard, the lane flush back to 8 and
+    the shrink drain to a quarter of the grown capacity, the budget
+    sweep, 64 groups at 8 lanes; the lane shrink and the first drain
+    steps against the port's CPU leg on a host copy.  (b) At
+    ``benchmarks/elasticity.py``'s own size through ``run_scenario``,
+    without and with a ``WidthController``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import CacheConfig
+    from repro_torch.core import cache as core_cache
+    from repro_torch.elastic import run_scenario
+    from repro_torch.elastic import resize as rz
+    from repro_torch.elastic.controller import WidthController
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.gen import interleave, ycsb
+
+    t_phase = time.perf_counter()
+    S, ls, G = cl.n_shards, cl.local.n_slots, BATCH
+    wide, narrow = ELASTIC_LANES
+    cap0 = int(cl.dm.state.capacity_blocks.sum())
+    grown, shrunk = 2 * cap0, cap0 // 2
+    n1, n2 = (ELASTIC_GROUPS * G * S * wide, ELASTIC_GROUPS * G * S * narrow)
+    k_more, w_more = ycsb_a_continuation(keys11, n1 + n2)
+    k3a, w3a = dm_inputs(*interleave(k_more[:n1], S * wide, w_more[:n1]),
+                         ELASTIC_GROUPS, G, dev)
+    k3b, w3b = dm_inputs(*interleave(k_more[n1:], S * narrow, w_more[n1:]),
+                         ELASTIC_GROUPS, G, dev)
+    live0 = int(cl.dm.state.n_cached.sum())
+    log(f"phase 13 (a): phase 11's cluster ({S} shards x "
+        f"{cl.lanes_per_shard} lanes, {S * ls} slots, capacity {cap0}, "
+        f"{live0} live objects): lanes {narrow} -> {wide}, capacity "
+        f"{cap0} -> {grown}, {ELASTIC_GROUPS} groups of [{G}, {S * wide}], "
+        f"lanes -> {narrow}, drain to {shrunk} ({ELASTIC_BATCH} a shard a "
+        f"step), {ELASTIC_GROUPS} groups of [{G}, {S * narrow}]")
+    out: dict = dict(live_before=live0)
+    launched = {k: 0 for k in CACHE_KERNELS}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        return r, time.perf_counter() - t0
+
+    def segment(tag, c, k3, w3, captures):
+        ops.reset_launches()
+        g0 = len(core_cache._GRAPHS)
+        (c, _), wall = timed(lambda: c.execute(k3, w3, route_factor=DM_ROUTE))
+        got = cache_launches()
+        new = len(core_cache._GRAPHS) - g0
+        want = S * (k3.shape[0] + captures)
+        if new != captures or any(n != want for n in got.values()):
+            raise AssertionError(f"phase 13 {tag}: launches {got}, {new} "
+                                 f"graphs captured; want {want} ({S} a DM "
+                                 f"step) and {captures} capture")
+        for k in CACHE_KERNELS:
+            launched[k] += got[k]
+        issued = int((k3 != 0).sum())
+        out[tag] = dict(requests=issued, wall_s=wall,
+                        requests_per_s=issued / wall, launches=got)
+        log(f"[{card}] phase 13 {tag}: {issued} requests in {wall:.2f} s = "
+            f"{issued / wall:.0f} requests/s, launches {got} ({captures} "
+            f"capture)")
+        return c
+
+    # 1. The grow: lanes, then the capacity write alone.
+    (cl, rep), wall = timed(lambda: cl.with_lanes(wide))
+    out["lanes_grow"] = dict(wall_s=wall, report=tuple(rep))
+    before = cl.dm
+    (cl, rep), wall = timed(lambda: cl.drain_to(grown))
+    out["grow"] = dict(wall_s=wall, report=tuple(rep))
+    if tuple(rep) != (0, 0, 0, 0):
+        raise AssertionError(f"phase 13: the grow drained or moved: {rep}")
+    for part, a, b in zip(("state", "clients", "stats"), before, cl.dm):
+        for f, x, y in zip(a._fields, a, b):
+            if (x is not y) != (part == "state" and f == "capacity_blocks"):
+                raise AssertionError(f"phase 13: the grow wrote {part}.{f}")
+    if cl.dm.state.capacity_blocks.tolist() != [grown // S] * S:
+        raise AssertionError("phase 13: the grown capacity is not written")
+
+    # 2. 64 groups at the new width: one new graph.
+    cl = segment("wide", cl, k3a, w3a, 1)
+
+    # 3. The flush back to 8 lanes and the shrink drain; the lane shrink
+    # and the first drain steps also on a host copy, the CPU leg.
+    host = cl._replace(device=torch.device("cpu"), dm=cpu_copy(cl.dm))
+    (cl, rep), wall = timed(lambda: cl.with_lanes(narrow))
+    out["lanes_shrink"] = dict(wall_s=wall, report=tuple(rep))
+    host, hrep = host.with_lanes(narrow)
+    if tuple(rep) != tuple(hrep) or rep.migration_bytes:
+        raise AssertionError(f"phase 13: lane shrink reports {rep}, {hrep}")
+    same_parts("phase 13: the lane shrink against the CPU leg", cl.dm,
+               host.dm, 0, weight_ulp=0)
+    card8 = rz._set_capacity_impl(cl.dm, shrunk, S)
+    host8 = rz._set_capacity_impl(host.dm, shrunk, S)
+    for _ in range(ELASTIC_CPU_STEPS):
+        st, sa, _, _ = rz._drain_step(cl.local, ELASTIC_BATCH, card8.state,
+                                      card8.stats)
+        card8 = card8._replace(state=st, stats=sa)
+        st, sa, _, _ = rz._drain_step(cl.local, ELASTIC_BATCH, host8.state,
+                                      host8.stats)
+        host8 = host8._replace(state=st, stats=sa)
+    same_parts(f"phase 13: the first {ELASTIC_CPU_STEPS} drain steps "
+               f"against the CPU leg", card8, host8, 0, weight_ulp=0)
+    del host, host8, card8
+    pe, live_b = dominant_priorities(cl)
+    ev_b, hist_b = cl.dm.stats.evictions.clone(), cl.dm.state.hist_ctr.clone()
+    bytes_b = cl.dm.state.bytes_cached.clone()
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+        st0 = rz._set_capacity_impl(cl.dm, shrunk, S)
+        rz._drain_step(cl.local, ELASTIC_BATCH, st0.state, st0.stats)
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            _, wall1 = timed(lambda: rz._drain_step(
+                cl.local, ELASTIC_BATCH, st0.state, st0.stats))
+        cats = report_profile(prof, card, "drain_step", 1, wall1, out_dir)
+        out["drain_step_profile"] = dict(
+            kernels=cats.pop("kernels"), device_us=sum(cats.values()),
+            wall_us=wall1 * 1e6)
+        del st0
+    (cl, rep), wall = timed(lambda: cl.drain_to(
+        shrunk, batch_per_shard=ELASTIC_BATCH))
+    out["drain"] = dict(wall_s=wall, report=tuple(rep),
+                        objects_per_s=rep.drained_objects / wall)
+    log(f"[{card}] phase 13 drain: {rep.drain_steps} steps (limit 256), "
+        f"{rep.drained_objects} objects, {rep.drained_bytes} bytes in "
+        f"{wall:.3f} s = {rep.drained_objects / wall:.0f} objects/s; lane "
+        f"resizes {out['lanes_grow']['wall_s']:.3f} s (grow) and "
+        f"{out['lanes_shrink']['wall_s']:.3f} s (flush); one drain step "
+        + (f"{out['drain_step_profile']['device_us']:.0f} us of device time "
+           f"in {out['drain_step_profile']['kernels']} kernels"
+           if profile else "not traced (--profile)"))
+    st = cl.dm.state
+    if rep.migration_bytes or rep.drain_steps < 1:
+        raise AssertionError(f"phase 13: the shrink reported {rep}")
+    if not bool((st.bytes_cached <= st.capacity_blocks).all()):
+        raise AssertionError(f"phase 13: bytes_cached "
+                             f"{st.bytes_cached.tolist()} over the capacity")
+    recount("after the drain", cl.dm, ls)
+    live_a = ((st.size != 0) & (st.size != 255)).view(S, ls)
+    drained = live_b & ~live_a
+    per = drained.sum(dim=1)
+    if not (torch.equal(cl.dm.stats.evictions - ev_b, per)
+            and torch.equal((st.hist_ctr - hist_b) & 0xFFFFFFFF, per)
+            and int(per.sum()) == rep.drained_objects
+            and int((bytes_b - st.bytes_cached).sum()) * 64
+            == rep.drained_bytes
+            and not bool((live_a & ~live_b).any())):
+        raise AssertionError("phase 13: evictions, hist_ctr or the bytes "
+                             "did not move by the drained objects")
+    hi = torch.where(drained, pe, -float("inf")).max(dim=1).values
+    lo = torch.where(live_a, pe, float("inf")).min(dim=1).values
+    if not bool((hi <= lo).all()):
+        raise AssertionError("phase 13: a drained object outranked a "
+                             "surviving one under the dominant expert")
+
+    # 4. The budget sweep drains nothing; 5. 64 groups at 8 lanes on
+    # phase 11's graph.
+    dm, swept = rz.enforce_budget(cl.local, cl.dm)
+    if swept:
+        raise AssertionError(f"phase 13: enforce_budget drained {swept}")
+    cl = segment("narrow", cl._replace(dm=dm), k3b, w3b, 0)
+    st = cl.dm.state
+    if not bool((st.bytes_cached <= st.capacity_blocks + G * S * narrow)
+                .all()):
+        raise AssertionError(f"phase 13: bytes_cached "
+                             f"{st.bytes_cached.tolist()} more than a "
+                             f"group over the capacity")
+    recount("after the last segment", cl.dm, ls)
+    out["bytes_cached"] = st.bytes_cached.tolist()
+
+    # (b) The benchmark's own size through run_scenario.
+    keys, _ = ycsb("C", SCENARIO_REQUESTS, n_keys=SCENARIO_KEYS, seed=0)
+    cfg = CacheConfig(n_buckets=4096, assoc=8, capacity=8192,
+                      experts=("lru", "lfu"))
+    lanes0 = 32
+    T = SCENARIO_REQUESTS // lanes0
+    t1, t2 = T // 3, 2 * T // 3
+    timeline = [(t1, ("set_lanes", 64)), (t1, ("set_capacity", 16384)),
+                (t2, ("set_lanes", 32)), (t2, ("set_capacity", 4096))]
+    runs = {}
+    for tag, wc in (("fixed", None), ("width_controller", WidthController())):
+        ops.reset_launches()
+        g0 = len(core_cache._GRAPHS)
+        res, wall = timed(lambda: run_scenario(
+            cfg, keys, timeline, n_shards=1, lanes_per_shard=lanes0,
+            horizon=T, window=max(T // 40, 1), width_controller=wc,
+            device=dev))
+        got = cache_launches()
+        new = len(core_cache._GRAPHS) - g0
+        if any(n != T + new for n in got.values()):
+            raise AssertionError(f"phase 13 (b) {tag}: launches {got}, not "
+                                 f"{T + new}")
+        for k in CACHE_KERNELS:
+            launched[k] += got[k]
+        shrink = [e for e in res.events if e["event"] == "set_capacity"
+                  and e["t"] >= t2][0]["report"]
+        mig = sum(e["report"]["migration_bytes"] for e in res.events)
+        after = int(res.dm.state.n_cached.sum())
+        runs[tag] = res
+        out["scenario_" + tag] = dict(
+            wall_s=wall, requests_per_s=SCENARIO_REQUESTS / wall,
+            tput_32c_mops=float(res.phase(0, t1, "tput_mops").mean()),
+            tput_64c_mops=float(res.phase(t1, t2, "tput_mops").mean()),
+            migration_bytes=mig, shrink_drain_steps=shrink["drain_steps"],
+            n_cached_after_shrink=after, graphs_captured=new,
+            widths=list(wc.log) if wc else [lanes0], launches=got)
+        log(f"[{card}] phase 13 (b) {tag}: {SCENARIO_REQUESTS} requests in "
+            f"{wall:.2f} s; model throughput "
+            f"{out['scenario_' + tag]['tput_32c_mops']:.2f} Mops at 32 "
+            f"lanes, {out['scenario_' + tag]['tput_64c_mops']:.2f} at 64; "
+            f"migration {mig} bytes; shrink drain "
+            f"{shrink['drain_steps']} steps, {shrink['drained_objects']} "
+            f"objects; n_cached after {after}"
+            + (f"; widths {wc.log}" if wc else ""))
+        # benchmarks/elasticity.py's assertions.
+        if mig != 0 or shrink["drain_steps"] < 1 or after > 4096 + 64:
+            raise AssertionError(f"phase 13 (b) {tag}: migration {mig}, "
+                                 f"drain steps {shrink['drain_steps']}, "
+                                 f"n_cached {after}")
+    a, b = runs["fixed"].windows, runs["width_controller"].windows
+    if a != b or runs["fixed"].events != runs["width_controller"].events:
+        raise AssertionError("phase 13 (b): the width controller's chunking "
+                             "changed a window")
+    for k in CACHE_KERNELS:
+        results[k]["launches_elastic"] = launched[k]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: the grow wrote the capacity alone; the drain left every "
+        f"shard within its capacity, evicted no object ranked above a "
+        f"survivor, and equals the CPU leg for its first "
+        f"{ELASTIC_CPU_STEPS} steps (the lane flush in full); "
+        f"(b) {len(a)} windows equal with and without the width "
+        f"controller; phase wall {out['wall_s']:.1f} s")
     return out
 
 
@@ -2875,9 +3312,11 @@ def main() -> int:
         return 0
 
     results: dict = {}
+    reductions = check_reductions(dev)
     floor_ms = check_kernels(dev, results)
     e2e, plan, trace = run_main_path(dev, card, a.requests, SEQ_ROUNDS,
                                      results)
+    e2e["reductions"] = reductions
     if a.profile:
         profile_steps(dev, card, plan, trace, a.profile,
                       Path(a.out).parent if a.out else None)
@@ -2899,8 +3338,12 @@ def main() -> int:
     prof_dir = Path(a.out).parent if a.out else None
     e2e["tenants"] = run_tenants(dev, card, results, a.profile, prof_dir)
     e2e["l0"] = run_l0(dev, card, results, a.profile, prof_dir)
-    e2e["dm"] = run_dm(dev, card, results, a.profile, prof_dir)
+    e2e["dm"], cluster, keys11 = run_dm(dev, card, results, a.profile,
+                                        prof_dir)
     e2e["failover"] = run_failover(dev, card, results)
+    e2e["elastic"] = run_elastic(dev, card, results, cluster, keys11,
+                                 a.profile, prof_dir)
+    del cluster
 
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",
@@ -2923,7 +3366,7 @@ def main() -> int:
              "launches_gemma_2b", "layer_row_err_gemma_2b", "ms_tenant",
              "plain_ms_tenant", "bound_ms_tenant", "ms_w128",
              "launches_tenants", "launches_l0", "launches_dm",
-             "launches_failover",
+             "launches_failover", "launches_elastic",
              *(f + k for k in ("_4k", "_gemma_4k") for f in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")))
     kernels = []

@@ -30,10 +30,12 @@ Port notes:
   last-writer-wins (highest request position per slot, from a stable
   sort of the step's indices); every other scatter target is unique, or
   its duplicates write equal values.
-* Float sums whose order matters (per-lane penalties, the synced
-  penalty total) are taken as sequential scans (``cumsum``), in request
-  and lane order, as XLA's CPU scatter and reduce visit them; no float
-  atomics, so the step is deterministic on the card.
+* Float sums follow XLA's CPU order, f32 adds one at a time: the
+  per-lane penalties in request order (its scatter-add), the synced
+  penalty total over lanes in its reduce's row ranges (``_xla_sum0``),
+  the expert cdf and the normalising sums over E in index order
+  (``_seqsum`` and its kin); no float atomics, so the step is
+  deterministic on the card.
 * ``n_tenants > 1`` partitions the pool (DESIGN.md §11): per-tenant
   [T, E] expert weights, tenant-scoped eviction quotas (the draw kernel
   reads each op's (lane, tenant) cdf row and filters its sample), and the
@@ -58,6 +60,7 @@ Port notes:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -136,9 +139,73 @@ def _repeat(x: torch.Tensor, n: int) -> torch.Tensor:
         x.shape[0] * n, *x.shape[1:])
 
 
-def _seqsum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 0 in index order (a sequential scan on CPU and CUDA)."""
-    return torch.cumsum(x, dim=0)[-1]
+# Float sums in XLA's CPU order (f32 adds, one at a time), so that the
+# expert cdf, the penalty sums and the weight syncs match the JAX
+# package's bits.  PyTorch's CPU scan adds in f64 and rounds each output,
+# and its CPU and CUDA sums are pairwise or vectorized, so on the CPU the
+# adds run one row at a time.  On the card PyTorch's scan over a dim with
+# more than one element after it is sequential in f32 (one operator); a
+# scan with nothing after its dim is parallel, so a lone column is
+# widened to two first.  ``chip_smoke.py`` holds these against a host f32
+# loop on the card.
+
+def _seqscan(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Inclusive scan over ``dim``, f32 adds in index order."""
+    if x.device.type == "cuda":
+        if math.prod(x.shape[dim + 1:]) == 1:
+            wide = x.unsqueeze(-1).expand(*x.shape, 2)
+            return torch.cumsum(wide, dim=dim)[..., 0]
+        return torch.cumsum(x, dim=dim)
+    rows = [x.select(dim, 0)]
+    for i in range(1, x.shape[dim]):
+        rows.append(rows[-1] + x.select(dim, i))
+    return torch.stack(rows, dim=dim)
+
+
+def _seqsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim`` in index order: ``((x0 + x1) + x2) + ...``, as
+    XLA's scatter-add visits a group's requests."""
+    return _seqscan(x, dim).select(dim, -1)
+
+
+def _xla_chunks(n: int) -> list:
+    """The row ranges XLA's CPU reduce of a major axis sums one at a time
+    (then it adds the partial sums in order): all n rows up to 32; above
+    that ceil(n / 32) ranges, the middle ones of 32 rows and the rest
+    split evenly between the first (which takes the odd row) and the
+    last.  Probed against jitted ``jnp.sum(axis=0)`` up to 1,000 rows."""
+    if n <= 32:
+        return [(0, n)]
+    k = -(-n // 32)
+    mid = 32 * (k - 2)
+    first = -(-(n - mid) // 2)
+    starts = [0, first] + [first + 32 * i for i in range(1, k - 1)]
+    return list(zip(starts, starts[1:] + [n]))
+
+
+def _xla_sum0(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 in the order of XLA's CPU reduce (``_xla_chunks``):
+    ``jnp.sum(x, axis=0)``."""
+    spans = _xla_chunks(x.shape[0])
+    if len(spans) == 1:
+        return _seqsum(x)
+    sizes = {b - a for a, b in spans}
+    if len(sizes) == 1:                     # equal ranges: one reshape
+        parts = _seqsum(x.reshape(len(spans), sizes.pop(), *x.shape[1:]), 1)
+    else:
+        parts = torch.stack([_seqsum(x[a:b]) for a, b in spans])
+    return _seqsum(parts)
+
+
+def _seqsum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in index order: ``jnp.sum(x, axis=-1)``."""
+    return _seqsum(x.movedim(-1, 0))
+
+
+def _seqcumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan over the last dim in index order, contiguous:
+    ``jnp.cumsum(x, axis=-1)``."""
+    return _seqscan(x.movedim(-1, 0)).movedim(0, -1).contiguous()
 
 
 def _run_edges(idx: torch.Tensor, last: bool = False) -> torch.Tensor:
@@ -163,8 +230,8 @@ def _lww_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def _expert_cdf(weights: torch.Tensor) -> torch.Tensor:
     """The cumulative distribution [..., E] of the normalized weights."""
-    p = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-30)
-    return torch.cumsum(p, dim=-1)
+    p = weights / torch.clamp(_seqsum_last(weights)[..., None], min=1e-30)
+    return _seqcumsum_last(p)
 
 
 def _choose_expert(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -177,7 +244,7 @@ def apply_penalties(weights: torch.Tensor, penalties: torch.Tensor,
     """Multiplicative-weights regret update, clamp-THEN-normalize."""
     w = weights * torch.exp(-lam * penalties)
     w = torch.clamp(w, min=1e-4)
-    return w / w.sum(dim=-1, keepdim=True)
+    return w / _seqsum_last(w)[..., None]
 
 
 def _first_winner(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -409,7 +476,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         syncing = pcnt >= cfg.sync_period                    # [C, T]
     else:
         syncing = reg_lane > 0
-    tot_pen = _seqsum(torch.where(syncing[..., None], pacc, 0.0))  # [T, E]
+    tot_pen = _xla_sum0(torch.where(syncing[..., None], pacc, 0.0))  # [T, E]
     gw = apply_penalties(w2, tot_pen, lam)                    # [T, E]
     local_w = torch.where(syncing[..., None], gw[None], local_w)
     local_w = torch.clamp(local_w, min=1e-4)

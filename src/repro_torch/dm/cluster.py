@@ -12,9 +12,8 @@ routed, replicas), computed in numpy on the host, so reruns of a seeded
 failure timeline route identically.
 
 The JAX handle carries a device mesh; this one carries the card (or the
-CPU) its tensors live on.  The lane resize and the shrink drain
-(``with_lanes``, ``drain_to``) belong to ROADMAP Queue 1 item 14 and
-raise ``NotImplementedError``.
+CPU) its tensors live on.  Its resizes (``with_capacity``, ``drain_to``,
+``with_lanes``) run the elastic runtime's ``resize`` functions.
 """
 
 from __future__ import annotations
@@ -183,10 +182,15 @@ class Cluster(NamedTuple):
         return self._replace(dm=_set_capacity_impl(
             self.dm, new_global_capacity, self.n_shards))
 
-    def drain_to(self, new_global_capacity: int, **kwargs):
-        """Online resize with the shrink drain: ROADMAP item 14."""
+    def drain_to(self, new_global_capacity: int, *, drain: bool = True,
+                 batch_per_shard: int = 64, max_steps: int = 256):
+        """Online resize with the shrink drain (``resize_memory``).
+        Returns (cluster, ResizeReport)."""
         from repro_torch.elastic.resize import resize_memory
-        return resize_memory(self, new_global_capacity, **kwargs)
+        dm, report = resize_memory(
+            self.local, self.dm, new_global_capacity, drain=drain,
+            batch_per_shard=batch_per_shard, max_steps=max_steps)
+        return self._replace(dm=dm), report
 
     def with_tenant_budgets(self, budgets) -> "Cluster":
         """Rewrite the per-tenant budgets (global units, split exactly)."""
@@ -195,9 +199,15 @@ class Cluster(NamedTuple):
             self.dm, budgets, self.n_shards))
 
     def with_lanes(self, new_lanes_per_shard: int):
-        """Change the client lanes per shard: ROADMAP item 14."""
+        """Change the client lanes per shard (``resize_lanes``; new lanes
+        seeded with ``seed + 1``).  Returns (cluster, ResizeReport).  A
+        new width is a new DM step shape, so the next ``execute`` at it
+        captures one new graph."""
         from repro_torch.elastic.resize import resize_lanes
-        return resize_lanes(self, new_lanes_per_shard)
+        dm, report = resize_lanes(self.local, self.dm, new_lanes_per_shard,
+                                  seed=self.seed + 1)
+        return self._replace(dm=dm,
+                             lanes_per_shard=new_lanes_per_shard), report
 
     def inject_failure(self, k: int) -> "Cluster":
         """Ground-truth loss of shard k: its state is wiped and it stops

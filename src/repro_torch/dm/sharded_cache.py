@@ -40,8 +40,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.cache import (_read_word, _repeat, _san_kw, _scan,
-                                    _san_carry, _seqsum, access_group_,
-                                    apply_penalties)
+                                    _san_carry, _seqsum, _xla_sum0,
+                                    access_group_, apply_penalties)
 from repro_torch.core.hashing import bucket_of, hash_key, splitmix32
 from repro_torch.core.types import (CacheConfig, CacheState, ClientState,
                                     OpStats, init_cache, init_clients,
@@ -309,14 +309,6 @@ def _back_merge(hit_back: torch.Tensor, src_slot: torch.Tensor,
                       device=hit_back.device)
     out.scatter_(-1, at, (hb & valid).reshape(NG, G, S, S * q))
     return out[..., :lanes].reshape(NG, G, S * lanes)
-
-
-def _xla_sum0(x: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 0 in the order of XLA's CPU reduce of a major axis:
-    sequential within chunks of 32 rows, then over the chunks."""
-    parts = torch.stack([_seqsum(x[i:i + 32])
-                         for i in range(0, x.shape[0], 32)])
-    return _seqsum(parts)
 
 
 def _sync_weights(local_cfg: CacheConfig, state: CacheState,

@@ -1,11 +1,12 @@
 """Workload generators (paper §5.1): YCSB with a scrambled zipfian key
 distribution (theta=0.99; the paper uses 10M keys), ``interleave``,
 which shapes a flat stream into [T, C] concurrent-client steps, the
-expert-friendly streams (``lru_friendly``, ``scan_polluted_zipf``), the
-tenant workloads and their mix (``flash_crowd``, ``shifting_zipf``,
-``tenant_mix``) and the sized streams (``object_sizes``,
-``sized_zipfian``), and the DM placement helpers (``shard_of``,
-``keys_owned_by``, ``failover_trace``).
+expert-friendly streams (``lru_friendly``, ``scan_polluted_zipf``) and
+their changing and mixed forms (``changing_workload``,
+``loop_window``, ``mixed_apps``), the tenant workloads and their mix
+(``flash_crowd``, ``shifting_zipf``, ``tenant_mix``) and the sized
+streams (``object_sizes``, ``sized_zipfian``), and the DM placement
+helpers (``shard_of``, ``keys_owned_by``, ``failover_trace``).
 
 The port's own copy of the generators it needs from
 ``repro/workloads/gen.py``; the same seeds give identical arrays.  Keys
@@ -117,6 +118,70 @@ def scan_polluted_zipf(n_requests: int, hot_keys: int = 4_000,
 
 
 lfu_friendly = scan_polluted_zipf
+
+
+def changing_workload(n_requests: int, n_phases: int = 4, seed: int = 0,
+                      key_offset: int = 0) -> np.ndarray:
+    """Phases alternating LRU-friendly / LFU-friendly (Fig. 19 shape)."""
+    per = n_requests // n_phases
+    parts = []
+    for ph in range(n_phases):
+        if ph % 2 == 0:
+            parts.append(lru_friendly(per, seed=seed + ph))
+        else:
+            parts.append(lfu_friendly(per, seed=seed + ph) + np.uint32(100_000))
+    out = np.concatenate(parts)[:n_requests]
+    return (out + np.uint32(key_offset)).astype(np.uint32)
+
+
+def loop_window(n_requests: int, capacity: int, n_phases: int = 6,
+                window: int = 700, p_reuse: float = 0.9,
+                seed: int = 0) -> np.ndarray:
+    """Changing workload with strong expert divergence (Fig. 19 shape):
+    cyclic-loop phases (LRU-pathological, frequency helps) alternating with
+    fresh sliding-window phases (recency helps, stale frequencies mislead
+    LFU). Adaptive caching should beat BOTH single experts here."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    base = 1_000_000
+    for ph in range(n_phases):
+        n = n_requests // n_phases
+        if ph % 2 == 0:
+            loop_keys = int(capacity * 4 // 3)
+            parts.append((np.arange(n, dtype=np.uint32) % loop_keys) + 1)
+        else:
+            out = np.empty(n, np.uint32)
+            recent = np.zeros(window, np.uint32)
+            filled, nxt = 0, base
+            base += 300_000
+            ru = rng.random(n)
+            pk = rng.integers(0, window, n)
+            for i in range(n):
+                if filled and ru[i] < p_reuse:
+                    k = recent[pk[i] % filled]
+                else:
+                    k = nxt
+                    nxt += 1
+                out[i] = k
+                recent[i % window] = k
+                filled = min(filled + 1, window)
+            parts.append(out)
+    return np.concatenate(parts)
+
+
+def mixed_apps(n_requests: int, n_clients: int, lru_fraction: float,
+               seed: int = 0) -> np.ndarray:
+    """[T, C] tensor: a fraction of clients runs an LRU-friendly app, the
+    rest an LFU-friendly app with a disjoint key space (Figs. 3/20)."""
+    n_lru = int(round(lru_fraction * n_clients))
+    T = n_requests // n_clients
+    cols = []
+    for c in range(n_clients):
+        if c < n_lru:
+            cols.append(lru_friendly(T, seed=seed * 131 + c))
+        else:
+            cols.append(lfu_friendly(T, seed=seed * 131 + c) + np.uint32(500_000))
+    return np.stack(cols, axis=1)
 
 
 def flash_crowd(n_requests: int, hot_keys: int = 512, theta: float = 1.1,

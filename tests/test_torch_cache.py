@@ -299,9 +299,9 @@ def test_scan_and_execute_leave_the_callers_state_untouched():
 
 
 def test_unported_options_raise():
-    """What is still a later item of the port raises, naming its ROADMAP
-    item: the elastic runtime's drains and lane resize (item 14).  The
-    sanitizer and the replica (shadow) ops, once refused here, run."""
+    """Options once refused here run: the sanitizer and the replica
+    (shadow) ops in the step, and the elastic runtime's drains and lane
+    resize on a cluster (each returns its cache and a ``ResizeReport``)."""
     from repro_torch import elastic
     from repro_torch.dm import Cluster
     keys = torch.ones((1, C), dtype=torch.int64)
@@ -314,12 +314,18 @@ def test_unported_options_raise():
     cluster = Cluster.make(t_types.CacheConfig(n_buckets=64, assoc=4,
                                                capacity=96), 4, 2,
                            device="cpu")
+    cluster, _ = cluster.execute(torch.from_numpy(
+        t_gen.zipfian(16 * 8, 200, seed=4).astype(np.int64)).view(16, 8))
     for call in (lambda: cluster.drain_to(48), lambda: cluster.with_lanes(4),
-                 lambda: elastic.resize_memory(cluster.local, cluster.dm),
-                 lambda: elastic.enforce_budget(cluster.local, cluster.dm),
-                 lambda: elastic.resize_lanes(cluster.local, cluster.dm)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+                 lambda: elastic.resize_memory(cluster.local, cluster.dm, 48),
+                 lambda: elastic.resize_lanes(cluster.local, cluster.dm, 4)):
+        _, report = call()
+        assert isinstance(report, elastic.ResizeReport)
+        assert report.migration_bytes == 0
+    shrunk, report = cluster.drain_to(48)
+    assert report.drain_steps >= 1
+    assert bool((shrunk.dm.state.bytes_cached <= 12).all())
+    assert elastic.enforce_budget(cluster.local, shrunk.dm)[1] == 0
 
 
 def _stats_pair(seed: int, shape=()):

@@ -1137,3 +1137,122 @@ def test_a_sanitized_dm_segment_raises_on_a_corrupted_carry(cuda):
     bad = b._replace(dm=b.dm._replace(state=b.dm.state._replace(key=key)))
     with pytest.raises(SanitizerError, match="SAN003"):
         bad.execute(keys[:2], wr[:2])
+
+
+def _host_seq(x):
+    """Rows in order, one f32 add at a time (XLA's CPU order)."""
+    acc = x[0].copy()
+    for row in x[1:]:
+        acc = (acc + row).astype(np.float32)
+    return acc
+
+
+def _host_xla0(x):
+    return _host_seq(np.stack([_host_seq(x[a:b])
+                               for a, b in t_cache._xla_chunks(x.shape[0])]))
+
+
+def _host_cum_last(x):
+    out = x.copy()
+    for i in range(1, x.shape[-1]):
+        out[..., i] = (out[..., i - 1] + x[..., i]).astype(np.float32)
+    return out
+
+
+def _host_sum_last(x):
+    return _host_seq(np.moveaxis(x, -1, 0))
+
+
+def _ordered_sum_cases():
+    from repro_torch.elastic.resize import _tenant_mean
+    f32 = np.float32
+
+    def cdf(w):
+        s = np.maximum(_host_sum_last(w), f32(1e-30))
+        return _host_cum_last((w / s[..., None]).astype(f32))
+
+    def norm(w):
+        w = np.maximum(w, f32(1e-4))
+        return (w / _host_sum_last(w)[..., None]).astype(f32)
+
+    return {
+        "seqsum": (t_cache._seqsum, _host_seq),
+        "xla_sum0": (t_cache._xla_sum0, _host_xla0),
+        "seqsum_last": (t_cache._seqsum_last, _host_sum_last),
+        "seqcumsum_last": (t_cache._seqcumsum_last, _host_cum_last),
+        "expert_cdf": (t_cache._expert_cdf, cdf),
+        "apply_penalties": (lambda w: t_cache.apply_penalties(
+            w, torch.zeros_like(w), 0.1), norm),
+        "tenant_mean": (_tenant_mean, lambda x: (_host_xla0(x) * (
+            f32(1) / f32(x.shape[0]))).astype(f32)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["seqsum", "xla_sum0", "seqsum_last",
+                                "seqcumsum_last", "expert_cdf",
+                                "apply_penalties", "tenant_mean"])
+def test_ordered_sums_match_a_host_loop_on_the_card(cuda, op):
+    """The float sums that follow XLA's CPU order (F1) take one scan on
+    the card: at 1 to 128 rows, E = 1 to 8, with no, one and three
+    columns (a lone column is widened), bit-equal to a host f32 loop."""
+    fn, host = _ordered_sum_cases()[op]
+    rng = np.random.default_rng(11)
+    for R in (1, 4, 31, 32, 33, 40, 64, 65, 128):
+        for E in range(1, 9):
+            for cols in ((), (1,), (3,)):
+                shape = (R,) + cols + (E,)
+                x = (rng.random(shape, dtype=np.float32)
+                     * rng.choice(np.float32([1e-3, 1.0, 1e3]), shape))
+                got = fn(torch.from_numpy(x).to(cuda)).cpu().numpy()
+                want = host(x)
+                assert got.shape == want.shape
+                assert np.array_equal(got.view(np.int32),
+                                      want.view(np.int32)), (op, shape)
+
+
+@pytest.mark.cuda
+def test_drain_and_lane_resize_on_the_card_match_the_cpu(cuda):
+    """The shrink drain (one batched pass over the shards a step), the
+    lane grow and the flush back, from the same state on the card and on
+    the CPU: every leaf and report equal, and the drained cluster serves
+    on."""
+    from repro_torch.dm import Cluster
+    cfg = _dm_cfg(capacity=256, n_buckets=128, assoc=4, l0_entries=0)
+    keys, wr, sz, ten = _dm_trace(6)
+    cpu, _ = Cluster.make(cfg, DM_S, DM_LANES, 5, device="cpu").execute(
+        keys, wr, sz, ten)
+    card = cpu._replace(device=cuda, dm=t_types.dm_from_numpy(
+        t_types.dm_to_numpy(cpu.dm), device=cuda))
+    for change in (lambda c: c.with_lanes(12), lambda c: c.with_lanes(3),
+                   lambda c: c.drain_to(32, batch_per_shard=4)):
+        (a, ra), (b, rb) = change(cpu), change(card)
+        assert ra == rb
+        x, y = t_types.dm_to_numpy(a.dm), t_types.dm_to_numpy(b.dm)
+        for part in x:
+            for f in x[part]:
+                assert np.array_equal(x[part][f], y[part][f]), (part, f)
+    assert rb.drain_steps >= 2
+    assert bool((b.dm.state.bytes_cached <= 8).all())
+    b, _ = b.execute(keys[:2, :, :DM_S * DM_LANES].to(cuda))
+
+
+@pytest.mark.cuda
+def test_scenario_on_the_card_matches_the_cpu(cuda):
+    """``run_scenario`` with a health monitor, per-window replica
+    election, a failure and its recovery, a lane change and a shrink, on
+    the card and on the CPU: the same windows and events."""
+    from repro_torch.elastic import HealthMonitor, run_scenario
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96)
+    trace = gen.failover_trace(48, 4, 4, 64, hot_shard=1, hot_fraction=0.7,
+                               n_hot=12, n_keys=300, seed=7).ravel()
+    timeline = [(8, ("set_lanes", 6)), (16, ("fail_shard", 1)),
+                (32, ("recover_shard", 1)), (40, ("set_capacity", 48))]
+    runs = [run_scenario(cfg, trace, timeline, n_shards=4, lanes_per_shard=4,
+                         horizon=48, window=4, health=HealthMonitor(4),
+                         replicate_hot=8, seed=7, drain_batch=8, device=d)
+            for d in ("cpu", cuda)]
+    assert runs[0].windows == runs[1].windows
+    assert runs[0].events == runs[1].events
+    assert [e["t"] for e in runs[1].events if e["event"] == "mark_failed"] \
+        == [24]

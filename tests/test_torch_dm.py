@@ -28,7 +28,7 @@ rewarm's ``ResizeReport`` equal.  ``execute(cluster, trace)`` gives the
 JAX package's ``ExecResult`` fields.  In process: the membership maps,
 the replica election, the rendezvous scores and the placement generators
 equal the JAX package's; the capacity, budget and replica-map writes;
-the item-14 paths raise; a shard step's in-place writes all land in the
+the item-14 paths run; a shard step's in-place writes all land in the
 global table.
 """
 
@@ -330,17 +330,32 @@ def test_placement_generators_match_jax():
 
 
 def test_item14_paths_raise():
+    """The item-14 paths, which raised until the elastic runtime was
+    ported, run: ``drain_to`` and ``with_lanes`` (both spellings) give
+    what the ``resize`` functions give on ``(local, dm)``, the drain
+    leaves every shard within its budget, and the resized cluster
+    serves."""
+    from repro_torch import elastic
     cl = Cluster.make(t_types.CacheConfig(n_buckets=64, assoc=4,
                                           capacity=96), 4, 8, device="cpu")
-    for call in (lambda: cl.drain_to(64), lambda: cl.with_lanes(4),
-                 lambda: t_cluster.with_lanes(cl, 4)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
-    from repro_torch import elastic
-    for fn in (elastic.resize_memory, elastic.enforce_budget,
-               elastic.resize_lanes):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(cl.local, cl.dm)
+    keys = _t64(t_gen.zipfian(16 * S * LANES, 300, 0.9, 3)).view(16, -1)
+    cl, _ = cl.execute(keys)
+    assert bool((cl.dm.state.bytes_cached > 12).any())
+    shrunk, report = cl.drain_to(48)
+    dm, want = elastic.resize_memory(cl.local, cl.dm, 48)
+    assert report == want and report.drain_steps >= 1
+    assert report.migration_bytes == 0 and report.drained_objects > 0
+    assert all(torch.equal(a, b) for a, b in zip(shrunk.dm.state, dm.state))
+    assert bool((shrunk.dm.state.bytes_cached <= 12).all())
+    assert elastic.enforce_budget(cl.local, shrunk.dm)[1] == 0
+    dm, want = elastic.resize_lanes(cl.local, cl.dm, 4, seed=cl.seed + 1)
+    for narrow, report in (cl.with_lanes(4), t_cluster.with_lanes(cl, 4)):
+        assert report == want == (0, 0, 0, 0)
+        assert narrow.lanes_per_shard == 4
+        assert all(torch.equal(a, b)
+                   for a, b in zip(narrow.dm.clients, dm.clients))
+        _, hits = narrow.execute(keys[:, :S * 4])
+        assert hits.shape == (16, S * 4)
 
 
 def test_capacity_budget_and_replica_writes():
