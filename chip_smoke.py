@@ -226,13 +226,44 @@ Phases, each of which raises (exit code != 0) on any failure:
    migration, a drain at the shrink, ``n_cached`` at most 4,096 + 64
    after it), run without and with a ``WidthController``: every window
    equal between the two.
+14. Training at full width: smollm-135m's published config (30 layers,
+   d_model 576, 9 heads over 3 KV heads, d_ff 1,536, vocab 49,152),
+   random bf16 params from a seeded generator on the card, T = 4,096
+   (``SHAPES["train_4k"]``), a global batch of 16 (train_4k's 256 cut for
+   the time limit) in 4 microbatches, ``remat="full"``, the AdamW of
+   ``launch/train.py`` (lr 3e-3, 20 warmup steps).  Six steps through
+   ``TrainLoop`` with a checkpoint every three; a second ``TrainLoop``
+   resumes from step 3's checkpoint to step 6: its params, master, m and
+   v bit-equal to the first run's, its losses equal.  No hand-written
+   kernel may launch in a train step (the training path's attention is
+   the plain ``full_attention`` under autograd); a prefill forward of
+   the trained params must launch the flash kernel 30 times.  One f32
+   train step at the smoke config on the card against the same step on
+   the CPU: loss, m and v within 1e-4, the master within it where Adam's
+   normalised step is well conditioned and within the step's reach (2
+   lr) elsewhere.  ``compressed_allreduce(group=None)`` on the full
+   134,515,008-element flat gradient of a microbatch: its first
+   1,048,576 elements bit-equal to the CPU, every error within 1.01 x
+   its block's scale.  Logged: ms a step, tokens/s, peak memory, model
+   FLOPs a step over 989 TFLOP/s; with ``--profile``, a traced step by
+   kind of kernel and the step with PyTorch's SDPA in place of the
+   plain attention (a yardstick).
+15. Baselines as oracles, and the examples: ``tests/test_adaptive.py``'s
+   three oracle checks with the cache on the card (capacity 1,024, 8
+   lanes, 60,000 requests, ``execute(plan=None)``, fused): Ditto-LRU
+   within 0.05 of exact LRU (``simulate_policy``), Ditto-LRU and
+   Ditto-LFU within 0.06 of ``PyDitto``, adaptive at least max(LRU, LFU)
+   - 0.03 on both traces.  Meanwhile the five ``examples/torch_*.py``
+   run at once, each in its own process on the card, and must exit 0
+   (their asserts hold) within 300 s; their wall times are logged.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
 counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
 engine's, phase 9's, 10's, 11's, 12's arms and 13's segments and
-scenario runs) and read just after it.
+scenario runs, phase 14's training loop and prefill, phase 15's oracle
+runs) and read just after it.
 
 The second-to-last line is the kernels' JSON record (each with the
 launch floor, ``floor_ms``), the last line
@@ -245,6 +276,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -327,6 +359,18 @@ ELASTIC_CPU_STEPS = 8
 SCENARIO_REQUESTS, SCENARIO_KEYS = 60_000, 20_000
 ENGINE = dict(requests=24, prompt=96, shared=48, new=16, lanes=4,
               page_size=16, pool_pages=32)
+# Phase 14: smollm-135m at full width on train_4k's sequence length; the
+# global batch cut from train_4k's 256 to 16 for the script's time limit.
+TRAIN = dict(arch="smollm-135m", batch=16, microbatches=4, remat="full",
+             steps=6, ckpt_every=3, lr=3e-3)
+TRAIN_TOL = 1e-4        # the smoke step, card against CPU
+COMPRESS_HELD = 1 << 20     # elements of the flat gradient held to the CPU
+PEAK_BF16 = 989e12          # H100 SXM dense bf16 (data sheet)
+# Phase 15: tests/test_adaptive.py's sizes and bounds.
+ORACLE = dict(capacity=1024, clients=8, requests=60_000)
+EXAMPLES = ("quickstart", "multi_tenant_cache", "dm_elastic_cache",
+            "serve_with_prefix_cache", "train_lm")
+EXAMPLE_TIMEOUT = 300
 
 
 def log(*a) -> None:
@@ -2612,6 +2656,18 @@ PROFILE_GROUPS = (
     ("fills", ("FillFunctor",)),
     ("sorts", ("radixSort", "RadixSort")),
 )
+# Phase 14's train step: the plain attention's f32 passes show as softmax,
+# casts and other elementwise kernels.
+TRAIN_PROFILE_GROUPS = (
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+    ("softmax", ("softmax", "SoftMax")),
+    ("casts and copies", ("direct_copy_kernel", "Memcpy", "memcpy")),
+    ("reductions", ("reduce_kernel",)),
+    ("gather, scatter, index, sorts", ("scatter_gather", "index", "gather",
+                                       "adixSort")),
+    ("fills", ("FillFunctor",)),
+    ("other elementwise", ("elementwise_kernel",)),
+)
 
 
 def profile_steps(dev, card: str, gp, trace, n_groups: int,
@@ -2660,7 +2716,7 @@ def profile_steps(dev, card: str, gp, trace, n_groups: int,
 
 
 def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
-                   out_dir: Path | None) -> dict:
+                   out_dir: Path | None, groups=PROFILE_GROUPS) -> dict:
     """Print where a traced window's device time goes (per step, and the
     busy share of the wall) and, given ``out_dir``, write the whole
     kernel table there.  Only device events count: run eagerly, a CPU
@@ -2695,7 +2751,7 @@ def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
             f"  {k[:90]}")
     cats: dict = {"kernels": launched}
     for t, n, k in rows:
-        c = next((c for c, keys in PROFILE_GROUPS
+        c = next((c for c, keys in groups
                   if any(key in k for key in keys)), "other")
         cats[c] = cats.get(c, 0.0) + t
     log("    by kind, us/step: " + ", ".join(
@@ -3263,6 +3319,407 @@ def replay_page_cache(dev, pc, lookups, launches) -> dict:
     return dict(prompts=len(lookups), lookups=pc.lookups, held=checked)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training at full width.
+# ---------------------------------------------------------------------------
+
+def train_flops(cfg, batch: int, seq: int) -> tuple:
+    """(model FLOPs, with the remat recompute) of one train step: 2 a
+    matmul weight a token and the full [T, T] scores and their product
+    with V (the plain attention computes every pair), forward; the
+    backward twice the forward; ``remat="full"`` one more forward."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+                 + 3 * d * cfg.d_ff)
+    matmul = cfg.n_layers * per_layer + cfg.padded_vocab * d
+    attn = cfg.n_layers * 2 * 2 * seq * cfg.n_heads * hd
+    fwd = 2 * matmul + attn
+    tokens = batch * seq
+    return 3 * fwd * tokens, 4 * fwd * tokens
+
+
+def same_opt_step(tag: str, got, want, ocfg, tol: float) -> dict:
+    """One train step's (params, opt, loss) against another device's:
+    loss, m and v within ``tol`` (abs and rel) at every element; the
+    master within it where Adam's normalised step is well conditioned
+    (sqrt(v_hat) >= 100 eps) and within the step's reach (2 lr)
+    elsewhere, where u = m_hat / (sqrt(v_hat) + eps) turns last-bit
+    gradient differences into ones of order one."""
+    import numpy as np
+    import torch
+    from repro_torch.train.optimizer import lr_at, tree_leaves
+    (_, go, gl), (_, wo, wl) = got, want
+    npf = lambda t: t.detach().float().cpu().numpy()
+    if not np.isclose(float(gl), float(wl), rtol=tol, atol=tol):
+        raise AssertionError(f"{tag}: loss {float(gl)} vs {float(wl)}")
+    step = int(wo.step)
+    bc2 = 1 - np.float32(ocfg.b2) ** np.float32(step)
+    reach = 2 * float(lr_at(ocfg, torch.tensor(float(step))))
+    worst, ill = 0.0, 0
+    for part in ("m", "v", "master"):
+        for i, (a, b) in enumerate(zip(tree_leaves(getattr(go, part)),
+                                       tree_leaves(getattr(wo, part)))):
+            a, b = npf(a), npf(b)
+            ok = np.abs(a - b) <= tol + tol * np.abs(b)
+            if part == "master":
+                v = npf(tree_leaves(wo.v)[i])
+                good = np.sqrt(v / bc2) >= 100 * ocfg.eps
+                ill += int((~good).sum())
+                ok |= ~good & (np.abs(a - b) <= reach + tol)
+            if not ok.all():
+                raise AssertionError(f"{tag}: {part} leaf {i}: "
+                                     f"{int((~ok).sum())} elements off")
+            worst = max(worst, float(np.abs(a - b).max()))
+    return dict(loss=float(gl), loss_ref=float(wl), max_abs_diff=worst,
+                ill_conditioned=ill)
+
+
+def sdpa_step_s(step, params, opt, batch) -> float:
+    """The train step's wall with PyTorch's SDPA (causal; its fused
+    backward) in place of ``full_attention``: a yardstick of what a
+    fused attention backward would save, as SDPA is phase 6's.  Not on
+    any path of the port."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.ref import gqa_heads
+    from repro_torch.models import attention
+
+    def sdpa(q, k, v, **_):
+        k, v = gqa_heads(k), gqa_heads(v)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    with mock.patch.object(attention, "full_attention", sdpa):
+        float(step(params, opt, batch)[2])              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(params, opt, batch)[2])
+        return time.perf_counter() - t0
+
+
+def smoke_train_step(dev) -> dict:
+    """Phase 14: one f32 train step at the smoke config, on the card and
+    on the CPU, from the same params (drawn on the CPU) and batch."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt, make_train_step
+    from repro_torch.train.optimizer import tree_map
+    cfg = smoke_config(get_arch(TRAIN["arch"]))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = make_train_step(cfg, ocfg, n_microbatches=2, remat="full")
+    cpu = torch.device("cpu")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         dtype=torch.float32, device=cpu)
+    batch = synthetic_batches(cfg, 8, 32, seed=SEED, device=cpu)(0)
+    want = step(params, init_opt(params), batch)
+    p_dev = tree_map(lambda t: t.to(dev), params)
+    got = step(p_dev, init_opt(p_dev), {k: v.to(dev) for k, v in
+                                         batch.items()})
+    return same_opt_step("smoke train step, card vs CPU", got, want, ocfg,
+                         TRAIN_TOL)
+
+
+def check_compress(dev, g_flat) -> dict:
+    """Phase 14: ``compressed_allreduce(group=None)`` on the whole flat
+    gradient on the card; its first COMPRESS_HELD elements (whole blocks)
+    bit-equal to the same call on the CPU; every element's error within
+    1.01 x its block's scale."""
+    import torch
+    from repro_torch.train import grad_compress as gc
+    n = g_flat.numel()
+    t0 = time.perf_counter()
+    deq, st = gc.compressed_allreduce(g_flat, gc.init_compress(n, dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    head = g_flat[:COMPRESS_HELD].cpu()
+    deq_c, st_c = gc.compressed_allreduce(head, gc.init_compress(
+        COMPRESS_HELD))
+    same_bits("compress (dequantized)", deq[:COMPRESS_HELD].cpu(), deq_c)
+    same_bits("compress (error)", st.error[:COMPRESS_HELD].cpu(), st_c.error)
+    pad = (-n) % gc.BLOCK
+    scale = torch.nn.functional.pad(g_flat.abs(), (0, pad)).reshape(
+        -1, gc.BLOCK).amax(dim=1, keepdim=True) / 127.0
+    err = torch.nn.functional.pad((deq - g_flat).abs(), (0, pad)).reshape(
+        -1, gc.BLOCK)
+    if not bool((err <= 1.01 * scale).all()):
+        raise AssertionError("compress: an error above 1.01 x its block's "
+                             "scale")
+    return dict(elements=n, wall_s=wall, held=COMPRESS_HELD,
+                max_err_over_scale=float((err / scale.clamp(min=1e-30))
+                                         .max()))
+
+
+def run_training(dev, card: str, profile: bool = False,
+                 out_dir: Path | None = None) -> dict:
+    """Phase 14: smollm-135m at full width trains six steps through
+    ``TrainLoop`` (checkpoints at 3 and 6), and a second loop resumes
+    from step 3's checkpoint to the same params, bit for bit; no
+    hand-written kernel launches in a train step, while a prefill
+    forward of the same params launches the flash kernel once a layer;
+    the smoke step on the card against the CPU; the gradient
+    compression on the whole flat gradient.  ``profile``: one more
+    step, traced, its device time by kind of kernel."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import adamw_config, synthetic_batches
+    from repro_torch.models import forward, param_count
+    from repro_torch.train import init_opt, make_train_step
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg, params = arch_params(dev, TRAIN["arch"])
+    seq, B = SHAPES["train_4k"].seq_len, TRAIN["batch"]
+    ocfg = adamw_config(TRAIN["lr"], TRAIN["steps"])
+    step = make_train_step(cfg, ocfg, n_microbatches=TRAIN["microbatches"],
+                           remat=TRAIN["remat"])
+    batches = synthetic_batches(cfg, B, seq, seed=SEED, device=dev)
+    n_params = param_count(cfg)
+    log(f"phase 14: {cfg.name} at full width ({n_params:,} params, "
+        f"{params['embed'].dtype}), "
+        f"global batch {B} x T = {seq} (train_4k's 256 cut to {B}) in "
+        f"{TRAIN['microbatches']} microbatches, remat={TRAIN['remat']!r}, "
+        f"{TRAIN['steps']} steps, checkpoints every {TRAIN['ckpt_every']}")
+    scratch = Path(tempfile.mkdtemp(prefix=".train_ckpt_", dir=ROOT))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        first = TrainLoop(step, str(scratch / "a"),
+                          ckpt_every=TRAIN["ckpt_every"])
+        p6, o6 = first.run(params, init_opt(params), batches, TRAIN["steps"],
+                           log_every=1, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        if any(launches.values()):
+            raise AssertionError(f"a train step launched hand-written "
+                                 f"kernels: {launches}")
+        if sorted(first.mgr._list()) != [3, 6]:
+            raise AssertionError(f"checkpoints {first.mgr._list()}")
+        (scratch / "b").mkdir()
+        for f in ("step_0000000003.npz", "step_0000000003.npz.json"):
+            shutil.copy(scratch / "a" / f, scratch / "b" / f)
+        t0 = time.perf_counter()
+        again = TrainLoop(step, str(scratch / "b"),
+                          ckpt_every=TRAIN["ckpt_every"])
+        p6b, o6b = again.run(params, init_opt(params), batches,
+                             TRAIN["steps"], log_every=1, log=log)
+        torch.cuda.synchronize()
+        wall_resume = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for tag, a, b in (("params", p6, p6b), ("master", o6.master, o6b.master),
+                      ("m", o6.m, o6b.m), ("v", o6.v, o6b.v)):
+        for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"resume: {tag} leaf {i} differs from "
+                                     "the uninterrupted run")
+    if again.losses != first.losses[3:]:
+        raise AssertionError(f"resume: losses {again.losses} vs "
+                             f"{first.losses[3:]}")
+    losses = first.losses
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    times = first.straggler.times
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    model, hw = train_flops(cfg, B, seq)
+    out = dict(arch=cfg.name, params=n_params, batch=B, seq=seq,
+               microbatches=TRAIN["microbatches"], remat=TRAIN["remat"],
+               losses=losses, step_s=times, step_s_median=steady,
+               first_step_s=times[0], tokens_per_s=B * seq / steady,
+               peak_gib=peak / 2**30, wall_s=wall, resume_wall_s=wall_resume,
+               model_flops=model, hw_flops=hw,
+               mfu=model / steady / PEAK_BF16,
+               hfu=hw / steady / PEAK_BF16, launches=launches)
+    log(f"[{card}] phase 14: {TRAIN['steps']} steps, losses "
+        f"{[round(x, 4) for x in losses]}; step times "
+        f"{[round(x, 3) for x in times]} s; median after the first "
+        f"{steady * 1e3:.1f} ms = {B * seq / steady:,.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; {model:.3e} model FLOPs a step "
+        f"({hw:.3e} with the remat recompute) = {out['mfu']:.3f} of "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s ({out['hfu']:.3f}); loop wall "
+        f"{wall:.1f} s, resumed run {wall_resume:.1f} s; resume bit-equal; "
+        f"hand-written kernel launches in the train steps: 0")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(p6, o6, batches(TRAIN["steps"]))[2])
+            wall_p = time.perf_counter() - t0
+        out["profile"] = report_profile(prof, card, "train_step", 1, wall_p,
+                                        out_dir, TRAIN_PROFILE_GROUPS)
+        out["sdpa_step_s"] = sdpa_step_s(step, p6, o6, batches(TRAIN["steps"]))
+        log(f"[{card}] phase 14 yardstick: the same step with PyTorch's "
+            f"SDPA (causal, its fused backward) in place of the plain "
+            f"attention: {out['sdpa_step_s'] * 1e3:.1f} ms, against "
+            f"{steady * 1e3:.1f} ms")
+    ops.reset_launches()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(1, cfg.vocab_size, (1, PREFILL_T), generator=g,
+                         device=dev)
+    with torch.no_grad():
+        h = forward(p6, cfg, tokens=toks)
+    flash = ops.launches()["flash_attention"]
+    if flash != cfg.n_layers or not bool(torch.isfinite(h).all()):
+        raise AssertionError(f"prefill of the trained params: flash "
+                             f"launched {flash} times, not {cfg.n_layers}")
+    out["prefill_flash_launches"] = flash
+
+    mb = {k: v[:B // TRAIN["microbatches"]] for k, v in batches(0).items()}
+    p_grad = tree_map(lambda x: x.detach().requires_grad_(), p6)
+    loss = forward(p_grad, cfg, tokens=mb["tokens"], labels=mb["labels"],
+                   remat=TRAIN["remat"])
+    grads = torch.autograd.grad(loss, tree_leaves(p_grad))
+    g_flat = torch.cat([x.float().reshape(-1) for x in grads])
+    del grads, p_grad, loss
+    if g_flat.numel() != n_params:
+        raise AssertionError(f"flat gradient {g_flat.numel()} != {n_params}")
+    out["compress"] = check_compress(dev, g_flat)
+    out["smoke_step"] = smoke_train_step(dev)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: prefill of the trained params launched flash "
+        f"{flash} times (once a layer); compressed_allreduce on the "
+        f"{n_params:,}-element gradient in {out['compress']['wall_s']:.3f} s,"
+        f" its first {COMPRESS_HELD:,} elements bit-equal to the CPU, "
+        f"error <= {out['compress']['max_err_over_scale']:.4f} x its "
+        f"block's scale; the smoke step on the card within {TRAIN_TOL} of "
+        f"the CPU (max |diff| {out['smoke_step']['max_abs_diff']:.3g}, "
+        f"{out['smoke_step']['ill_conditioned']} ill-conditioned master "
+        f"elements within 2 lr); phase wall {out['phase_wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the baselines as oracles, and the port's examples.
+# ---------------------------------------------------------------------------
+
+def run_oracles(dev, card: str) -> dict:
+    """Phase 15: tests/test_adaptive.py's three oracle checks, with the
+    cache on the card (``execute(plan=None)``, the fused backend) and
+    the baselines on the host, at its sizes and bounds."""
+    import numpy as np
+    from repro_torch.baselines import PyDitto, simulate_policy
+    from repro_torch.core import CacheConfig, execute, make
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.gen import (interleave, lfu_friendly,
+                                           lru_friendly)
+    cap, C, n = ORACLE["capacity"], ORACLE["clients"], ORACLE["requests"]
+    traces = {"lru": lru_friendly(n, seed=1), "lfu": lfu_friendly(n, seed=1)}
+
+    def card_hit(name, experts):
+        cfg = CacheConfig(n_buckets=max(256, cap // 2), assoc=8,
+                          capacity=cap, experts=experts)
+        res = execute(make(cfg, C, 0, device=dev),
+                      interleave(traces[name], C), plan=None)
+        return float(res.hits.sum()) / float(res.ops.sum())
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    hit = {(t, e): card_hit(t, e) for t in traces
+           for e in (("lru",), ("lfu",), ("lru", "lfu"))}
+    launches = ops.launches()
+    if not all(launches[k] for k in CACHE_KERNELS):
+        raise AssertionError(f"phase 15: the cache kernels did not all "
+                             f"launch: {launches}")
+    exact = simulate_policy(traces["lru"], cap, "lru")
+    if abs(hit["lru", ("lru",)] - exact) >= 0.05:
+        raise AssertionError(f"Ditto-LRU {hit['lru', ('lru',)]:.4f} vs exact "
+                             f"LRU {exact:.4f}")
+    py = {}
+    for e in (("lru",), ("lfu",)):
+        py[e] = PyDitto(cap, experts=e, seed=0).run(traces["lfu"])
+        if abs(py[e] - hit["lfu", e]) >= 0.06:
+            raise AssertionError(f"{e}: PyDitto {py[e]:.4f} vs the card "
+                                 f"{hit['lfu', e]:.4f}")
+    for t in traces:
+        best = max(hit[t, ("lru",)], hit[t, ("lfu",)])
+        if hit[t, ("lru", "lfu")] < best - 0.03:
+            raise AssertionError(f"{t}: adaptive {hit[t, ('lru', 'lfu')]:.4f}"
+                                 f" below max(LRU, LFU) {best:.4f} - 0.03")
+    out = dict(hit={f"{t}:{'+'.join(e)}": h for (t, e), h in hit.items()},
+               exact_lru=exact, pyditto={"+".join(e): h for e, h in
+                                          py.items()},
+               launches=launches, wall_s=time.perf_counter() - t0)
+    log(f"[{card}] phase 15 oracles ({n} requests, capacity {cap}, {C} "
+        f"lanes): Ditto-LRU {hit['lru', ('lru',)]:.4f} vs exact LRU "
+        f"{exact:.4f}; on the LFU trace Ditto-LRU/LFU "
+        f"{hit['lfu', ('lru',)]:.4f}/{hit['lfu', ('lfu',)]:.4f} vs PyDitto "
+        f"{py[('lru',)]:.4f}/{py[('lfu',)]:.4f}; adaptive "
+        f"{hit['lru', ('lru', 'lfu')]:.4f} (LRU trace), "
+        f"{hit['lfu', ('lru', 'lfu')]:.4f} (LFU trace); "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
+def run_examples(card: str, during=None) -> tuple:
+    """Phase 15: the five ``examples/torch_*.py`` on the card, each in a
+    process of its own, all at once; each must exit 0 (its asserts
+    hold).  ``during()`` runs in this process meanwhile (the oracles).
+    Returns (the examples' walls, concurrent ones and read no earlier
+    than ``during`` returns; what ``during`` returned)."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    scratch = Path(tempfile.mkdtemp(prefix=".examples_", dir=ROOT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for name in EXAMPLES:
+            args = ["--ckpt", str(scratch / "ckpt")] if name == "train_lm" \
+                else []
+            out = open(scratch / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+                 *args], cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT), out, time.perf_counter())
+        alongside = during() if during is not None else None
+        walls, failed, pending = {}, [], dict(procs)
+        while pending:
+            late = time.perf_counter() - t0 > EXAMPLE_TIMEOUT
+            for name, (proc, out, t_start) in list(pending.items()):
+                if proc.poll() is None and not late:
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                rc = proc.wait()
+                walls[name] = time.perf_counter() - t_start
+                del pending[name]
+                out.close()
+                text = (scratch / f"{name}.log").read_text()
+                tail = "\n    ".join(text.splitlines()[-4:])
+                log(f"[{card}] example torch_{name}.py: exit {rc}"
+                    f"{' (killed at the time limit)' if late else ''}, "
+                    f"{walls[name]:.1f} s\n    {tail}")
+                if rc != 0:
+                    failed.append(name)
+                    log(text[-3000:])
+            time.sleep(0.1)
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    return dict(wall_s=walls, all_s=time.perf_counter() - t0), alongside
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=6_000_000)
@@ -3271,7 +3728,8 @@ def main() -> int:
                     help="also trace this many grouped steps per backend "
                          "and twice as many (the difference is the step "
                          "alone) of phases 3, 9 and 10 (phase 11: fused "
-                         "DM steps), one yi-9b prefill and 8 decode steps")
+                         "DM steps), one yi-9b prefill and 8 decode steps, "
+                         "and one phase-14 train step")
     ap.add_argument("--step-only", action="store_true",
                     help="only plan phase 3's trace, count one eager step's "
                          "operators per backend and, with --profile, trace "
@@ -3344,6 +3802,11 @@ def main() -> int:
     e2e["elastic"] = run_elastic(dev, card, results, cluster, keys11,
                                  a.profile, prof_dir)
     del cluster
+    torch.cuda.empty_cache()
+    e2e["train"] = run_training(dev, card, bool(a.profile), prof_dir)
+    torch.cuda.empty_cache()
+    e2e["examples"], e2e["oracles"] = run_examples(
+        card, lambda: run_oracles(dev, card))
 
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",

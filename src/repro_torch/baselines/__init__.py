@@ -1,7 +1,11 @@
-"""Comparison-system cost models (a torch port of part of
-``repro.baselines``): the Ditto throughput model the elastic scenario
-driver reports."""
+"""Baselines (a torch port of ``repro.baselines``): the exact-policy
+oracles and ``PyDitto`` (host Python), and the comparison systems' cost
+models (host numpy)."""
 
-from repro_torch.baselines.systems import CLUSTER, DittoModel
+from repro_torch.baselines.policies import PyDitto, simulate_policy
+from repro_torch.baselines.systems import (CLUSTER, CliqueMapModel,
+                                           DittoModel, RedisModel,
+                                           ShardLRUModel)
 
-__all__ = ["CLUSTER", "DittoModel"]
+__all__ = ["simulate_policy", "PyDitto", "CLUSTER", "CliqueMapModel",
+           "DittoModel", "RedisModel", "ShardLRUModel"]

@@ -1113,6 +1113,38 @@ def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
                        ops.reshape((-1,) + lane), _repeat(w, G))
 
 
+def _deprecated_entrypoint(name: str) -> None:
+    import warnings
+    warnings.warn(
+        f"{name} is deprecated; drive traces through repro_torch.core."
+        "execute() (DESIGN.md §13): it wraps the same engine behind one "
+        "planned, width-adaptive surface", DeprecationWarning, stacklevel=3)
+
+
+def run_trace(cfg: CacheConfig, state: CacheState, clients: ClientState,
+              keys: torch.Tensor, is_write: torch.Tensor | None = None,
+              obj_size: torch.Tensor | None = None,
+              tenant: torch.Tensor | None = None) -> TraceResult:
+    """Deprecated sequential trace runner: use ``repro_torch.core.execute``
+    with ``plan=None`` (bit-identical results)."""
+    _deprecated_entrypoint("run_trace")
+    return _run_trace_impl(cfg, state, clients, keys, is_write, obj_size,
+                           tenant)
+
+
+def run_trace_grouped(cfg: CacheConfig, state: CacheState,
+                      clients: ClientState, keys: torch.Tensor,
+                      is_write: torch.Tensor | None = None,
+                      obj_size: torch.Tensor | None = None,
+                      tenant: torch.Tensor | None = None) -> TraceResult:
+    """Deprecated grouped trace runner: use ``repro_torch.core.execute``
+    with a precomputed plan or ``plan="adaptive"`` (bit-identical results
+    for the same plan)."""
+    _deprecated_entrypoint("run_trace_grouped")
+    return _run_trace_grouped_impl(cfg, state, clients, keys, is_write,
+                                   obj_size, tenant)
+
+
 def _empty_ys(cfg: CacheConfig, dev, round_shape) -> tuple:
     return (torch.zeros((0,) + round_shape, dtype=I64, device=dev),
             torch.zeros((0,) + round_shape, dtype=I64, device=dev),

@@ -9,6 +9,7 @@ conversion and arithmetic so results round as the reference's do.
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, NamedTuple
 
 import torch
@@ -144,3 +145,11 @@ def fresh_ext(clock: torch.Tensor, shape=()) -> torch.Tensor:
     clock = clock.to(torch.float32).expand(shape)
     zero = torch.zeros_like(clock)
     return torch.stack([clock, zero, zero + 1.0, zero + 2.0**30], dim=-1)
+
+
+def loc_of(name: str) -> int:
+    """Lines of code of a policy's priority function (Table 3 analogue)."""
+    src = inspect.getsource(REGISTRY[name].priority)
+    lines = [l for l in src.splitlines()
+             if l.strip() and not l.strip().startswith("#")]
+    return len(lines)

@@ -397,8 +397,19 @@ def flash_attention_op(q, k, v):
     """Causal softmax attention, forward.  q: [B, T, H, D]; k, v:
     [B, T, H, D], or the GQA view [B, T, Hkv, R, D] with Hkv*R == H that
     ``models/attention.py::repeat_kv`` makes.  bf16 or f32; returns
-    [B, T, H, D] in q's dtype."""
+    [B, T, H, D] in q's dtype.
+
+    Forward only: the kernel's output has no ``grad_fn``, so with grad
+    mode on and any input requiring grad it raises, on every device
+    alike, rather than drop the gradient."""
     dev = q.device
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the op is forward only and its inputs "
+            "require grad; the training path takes the plain attention "
+            "(models/attention.py::full_attention or chunked_attention, "
+            "attention_block(..., plain=True), as forward() with labels "
+            "does)")
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q has shape {tuple(q.shape)}, "
                          "expected [B, T, H, D]")

@@ -3,15 +3,21 @@
 
 ``full_attention`` and ``chunked_attention`` are the JAX package's two
 plain strategies, kept as plain torch (the tests hold them against
-JAX).  ``attention_block`` runs the causal case (``window == 0``)
-through ``kernels.ops.flash_attention_op`` at every T: the hand-written
-kernel for CUDA tensors, its plain version for CPU tensors.  Both of the
-JAX package's branches (full below 8192 tokens, chunked above) compute
-that same function.  Sliding-window blocks (``attn_local``) are not in
-this slice of the port.  So no entry point of the port calls
-``chunked_attention`` yet, and ``full_attention`` only as the bf16
-yardstick of the card's checks; their window masks wait for
-``attn_local``, which is to route its windowed case through them.
+JAX).  ``attention_block`` runs the causal case (``window == 0``) in
+one of two ways, chosen by its ``plain`` argument:
+
+* ``plain=False`` (prefill and serving): ``kernels.ops.flash_attention_op``
+  at every T, the hand-written kernel for CUDA tensors and its plain
+  version for CPU tensors.  Both of the JAX package's branches compute
+  that same function.  The kernel is forward only.
+* ``plain=True`` (training: ``forward`` with labels): the JAX package's
+  own branches, ``full_attention`` up to 8192 tokens and
+  ``chunked_attention`` above, which autograd differentiates.  The JAX
+  training path reaches no Pallas kernel either.
+
+Sliding-window blocks (``attn_local``) are not in the port yet; their
+window masks wait for ``attn_local``, which is to route its windowed
+case through the two plain strategies.
 
 Decode (one new token against a KV cache) lives in ``serve/decode.py``.
 """
@@ -90,8 +96,11 @@ def chunked_attention(q, k, v, *, chunk: int = 1024, window: int = 0,
     return out.transpose(1, 2)  # [B, T, H, D]
 
 
-def attention_block(x, params, cfg, positions, *, window: int = 0):
+def attention_block(x, params, cfg, positions, *, window: int = 0,
+                    plain: bool = False):
     """Causal self-attention over x: [B, T, d_model]. params: wq/wk/wv/wo.
+    ``plain``: the JAX package's plain strategies (the training path),
+    else the flash op (see the module docstring).
 
     The JAX package's sharding annotation (``maybe_shard``) has no
     counterpart on one card."""
@@ -107,5 +116,11 @@ def attention_block(x, params, cfg, positions, *, window: int = 0):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    o = ops.flash_attention_op(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    if not plain:
+        o = ops.flash_attention_op(q, k, v)
+    elif t > 8192:
+        o = chunked_attention(q, k, v)
+    else:
+        o = full_attention(q, k, v)
     return o.reshape(b, t, cfg.n_heads * hd) @ params["wo"]

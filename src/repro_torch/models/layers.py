@@ -1,8 +1,8 @@
 """Shared neural building blocks, as in ``repro/models/layers.py``
 (pure functions on tensors; bf16 activations on the main path).
 
-``logits_and_xent`` and ``layer_norm`` belong to training and to the
-families not yet ported (ROADMAP Queue 1 item 16) and are not here.
+``layer_norm`` belongs to the families not yet ported (ROADMAP Queue 1
+item 16) and is not here.
 """
 
 from __future__ import annotations
@@ -56,3 +56,17 @@ def embed(tokens: torch.Tensor, table: torch.Tensor,
         x = x * torch.sqrt(torch.tensor(float(table.shape[-1]),
                                         dtype=torch.float32)).to(x.dtype)
     return x
+
+
+def logits_and_xent(x: torch.Tensor, table: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of x [B, T, d] against the vocab table [V, d]
+    (tied or untied) at labels [B, T], as the JAX package's: the logits
+    in x's dtype, then f32 for the max, the log-sum-exp and the target
+    gather.  The padded vocab rows take part, as they do in JAX.  Its
+    vocab sharding (``maybe_shard``) has no counterpart on one card."""
+    logits = torch.einsum("btd,vd->btv", x, table).float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - tgt)

@@ -10,26 +10,29 @@ layout (``wq`` is [d, H*hd] and is applied as ``x @ w``), so
 :func:`params_from_numpy` carries the JAX package's params across with
 no transpose.
 
-``forward`` is the prefill forward (no labels): the JAX package's
-``lax.scan`` over periods is a Python loop over the stacked params.
-Its sharding annotations (``maybe_shard``) and remat names
-(``checkpoint_name``) have no counterpart on one card and are dropped;
-``labels`` and ``remat`` belong to training, which is not ported.
+``forward`` is the prefill forward (no labels), or the training loss
+(labels): the JAX package's ``lax.scan`` over periods is a Python loop
+over the stacked params, and its ``jax.checkpoint`` policies are
+``torch.utils.checkpoint`` forms (see :func:`forward`).  Its sharding
+annotations (``maybe_shard``) have no counterpart on one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
 
 PORTED_KINDS = ("attn",)
+REMAT = ("none", "full", "dots", "save_outs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,34 +200,90 @@ def params_to_numpy(params):
 # Forward
 # ----------------------------------------------------------------------
 
-def _apply_block(x, bp, cfg: ModelConfig, positions):
-    x = x + attention_block(L.rms_norm(x, bp["norm1"]), bp, cfg, positions)
-    y = L.rms_norm(x, bp["norm2"])
-    return x + L.gated_mlp(y, bp["w_gate"], bp["w_up"], bp["w_down"],
-                           cfg.mlp_kind)
+def _checkpointed(fn, *args, **kw):
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+
+
+def _apply_block(x, bp, cfg: ModelConfig, positions, plain: bool = False,
+                 save_outs: bool = False):
+    """One ``"attn"`` block.  ``save_outs``: each half under its own
+    checkpoint, so the backward keeps each half's input (x, and x plus
+    the attention output) and recomputes the rest: the residuals of
+    ``save_only_these_names("blk_attn_out", "blk_mlp_out")``, held as
+    the sums the next half reads."""
+    def attn(x):
+        return attention_block(L.rms_norm(x, bp["norm1"]), bp, cfg,
+                               positions, plain=plain)
+
+    def mlp(x):
+        return L.gated_mlp(L.rms_norm(x, bp["norm2"]), bp["w_gate"],
+                           bp["w_up"], bp["w_down"], cfg.mlp_kind)
+
+    if save_outs:
+        x = x + _checkpointed(attn, x)
+        return x + _checkpointed(mlp, x)
+    x = x + attn(x)
+    return x + mlp(x)
+
+
+def _save_dots(ctx, op, *args, **kw):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of the
+    products without batch dims (``x @ w``, which autograd sees as
+    ``mm``); recompute the rest, attention's batched products included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
             labels=None, remat: str = "none"):
-    """Final hidden states [B, T, d] of the prefill forward.
+    """The mean cross entropy if ``labels`` [B, T] are given, else the
+    final hidden states [B, T, d] of the prefill forward.
 
     tokens: int [B, T] (token archs); embeds: [B, T, d] (stub frontends).
-    Every attention layer runs through ``kernels.ops.flash_attention_op``.
+    Without labels every attention layer runs through
+    ``kernels.ops.flash_attention_op`` (forward only); with labels
+    through the JAX package's plain attention, which autograd
+    differentiates (``attention_block``'s ``plain``).
+
+    ``remat``, as the JAX package's ``jax.checkpoint`` of each period:
+    ``"none"``; ``"full"`` (``torch.utils.checkpoint`` around each
+    period: the backward keeps only each period's input); ``"dots"``
+    (the same with a selective policy that keeps the ``x @ w`` outputs,
+    see :func:`_save_dots`); ``"save_outs"`` (each block's attention and
+    MLP outputs, see :func:`_apply_block`).  All four give the same
+    numbers; they trade memory for recompute.
     """
     check_config(cfg)
-    if labels is not None or remat != "none":
-        raise NotImplementedError(
-            "labels and remat belong to training, ROADMAP Queue 1 item 16, "
-            "not yet ported")
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: expected one of {REMAT}")
+    plain = labels is not None
     if embeds is None:
         x = L.embed(tokens, params["embed"], cfg.embed_scale)
     else:
         x = embeds.to(params["embed"].dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
-    for p in range(cfg.n_periods):
+
+    def period_body(xc, p):
         for j, kind in enumerate(cfg.block_pattern):
             stacked = params["period"][f"{j}_{kind}"]
-            x = _apply_block(x, {n: w[p] for n, w in stacked.items()}, cfg,
-                             positions)
-    return L.rms_norm(x, params["final_norm"])
+            xc = _apply_block(xc, {n: w[p] for n, w in stacked.items()},
+                              cfg, positions, plain=plain,
+                              save_outs=remat == "save_outs")
+        return xc
+
+    for p in range(cfg.n_periods):
+        if remat == "full":
+            x = _checkpointed(period_body, x, p)
+        elif remat == "dots":
+            x = _checkpointed(period_body, x, p, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+        else:
+            x = period_body(x, p)
+    x = L.rms_norm(x, params["final_norm"])
+    if labels is None:
+        return x
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.logits_and_xent(x, table, labels)

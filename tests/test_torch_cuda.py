@@ -1256,3 +1256,104 @@ def test_scenario_on_the_card_matches_the_cpu(cuda):
     assert runs[0].events == runs[1].events
     assert [e["t"] for e in runs[1].events if e["event"] == "mark_failed"] \
         == [24]
+
+
+# ---------------------------------------------------------------------------
+# The training path (no hand-written kernel: the plain attention under
+# autograd, AdamW, checkpoints, gradient compression).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_flash_op_refuses_inputs_that_require_grad_on_the_card(cuda):
+    q, k, v = (torch.randn(1, 64, 2, 64, device=cuda) for _ in range(3))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="full_attention"):
+        ops.flash_attention_op(q, k, v)
+    ops.reset_launches()
+    with torch.no_grad():
+        out = ops.flash_attention_op(q, k, v)
+    assert out.grad_fn is None and ops.launches()["flash_attention"] == 1
+
+
+def _train_setup(dev):
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.train import AdamWConfig, init_opt, make_train_step
+    from repro_torch.train.optimizer import tree_map
+    cfg = smoke_config(get_arch("smollm-135m"))
+    params = tree_map(lambda t: t.to(dev), init_params(
+        cfg, generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+        device="cpu"))
+    batch = synthetic_batches(cfg, 8, 32, device="cpu")(0)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = make_train_step(cfg, ocfg, n_microbatches=2, remat="full")
+    return ocfg, step(params, init_opt(params),
+                      {k: v.to(dev) for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 train step (two microbatches, full remat) on the card and
+    the CPU, from the same params and batch: loss, m and v within 1e-4
+    (abs and rel); the master within it where Adam's normalised step is
+    well conditioned (sqrt(v_hat) >= 100 eps), within the step's reach
+    (2 lr) elsewhere.  No hand-written kernel launches."""
+    from repro_torch.train.optimizer import lr_at, tree_leaves
+    ops.reset_launches()
+    ocfg, (pc, oc, lc) = _train_setup(cuda)
+    assert not any(ops.launches().values())
+    _, (pp, op, lp) = _train_setup("cpu")
+    np.testing.assert_allclose(float(lc), float(lp), rtol=1e-4, atol=1e-4)
+    assert pc["embed"].device.type == cuda.type and int(oc.step) == 1
+    bc2 = 1 - np.float32(ocfg.b2)
+    reach = 2 * float(lr_at(ocfg, torch.tensor(1.0)))
+    for part in ("m", "v", "master"):
+        for i, (a, b) in enumerate(zip(tree_leaves(getattr(oc, part)),
+                                       tree_leaves(getattr(op, part)))):
+            a, b = a.cpu().numpy(), b.numpy()
+            ok = np.abs(a - b) <= 1e-4 + 1e-4 * np.abs(b)
+            if part == "master":
+                v = tree_leaves(op.v)[i].numpy()
+                ill = np.sqrt(v / bc2) < 100 * ocfg.eps
+                ok |= ill & (np.abs(a - b) <= reach + 1e-4)
+            assert ok.all(), (part, i)
+
+
+@pytest.mark.cuda
+def test_compress_on_the_card_is_bit_equal_to_the_cpu(cuda):
+    from repro_torch.train import grad_compress as gc
+    rng = np.random.default_rng(0)
+    for n in (4096, 5000, 1 << 20):
+        g = torch.from_numpy((rng.normal(size=n) * rng.exponential(1, n))
+                             .astype(np.float32))
+        st_c, st_g = gc.init_compress(n), gc.init_compress(n, cuda)
+        for _ in range(2):
+            qc, sc, st_c = gc.compress(g, st_c)
+            qg, sg, st_g = gc.compress(g.to(cuda), st_g)
+            assert torch.equal(qg.cpu(), qc)
+            for a, b in ((sg, sc), (st_g.error, st_c.error)):
+                assert torch.equal(a.cpu().view(torch.int32),
+                                   b.view(torch.int32))
+        dg, _ = gc.compressed_allreduce(g.to(cuda), gc.init_compress(n, cuda))
+        dc, _ = gc.compressed_allreduce(g, gc.init_compress(n))
+        assert torch.equal(dg.cpu().view(torch.int32), dc.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_tensors_restores_on_the_cpu(cuda, tmp_path):
+    from repro_torch.train import CheckpointManager, init_opt
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    cfg = smoke_config(get_arch("smollm-135m"))
+    params = init_params(cfg, generator=torch.Generator(device=cuda)
+                         .manual_seed(3), device=cuda)
+    opt = init_opt(params)
+    opt = opt._replace(step=opt.step + 5)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, {"params": params, "opt": opt})
+    mgr.wait()
+    like_p = tree_map(lambda t: t.cpu(), params)
+    got = mgr.restore(5, {"params": like_p, "opt": init_opt(like_p)})
+    assert int(got["opt"].step) == 5
+    for a, b in zip(tree_leaves(params) + tree_leaves(opt.master),
+                    tree_leaves(got["params"]) + tree_leaves(got["opt"].master)):
+        assert b.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)

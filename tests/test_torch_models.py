@@ -310,7 +310,11 @@ def test_forward_at_head_dim_256_matches_jax():
 
 
 def test_forward_refuses_training_arguments():
+    """``labels`` and the JAX package's four ``remat`` modes run since
+    the training path was ported (``tests/test_torch_train.py``); a
+    ``remat`` mode the JAX package lacks is refused."""
     cfg = smoke_config(get_arch("smollm-135m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="remat"):
         forward({}, cfg, tokens=torch.zeros(1, 2, dtype=torch.int64),
-                labels=torch.zeros(1, 2, dtype=torch.int64))
+                labels=torch.zeros(1, 2, dtype=torch.int64),
+                remat="offload")
