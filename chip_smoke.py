@@ -256,6 +256,35 @@ Phases, each of which raises (exit code != 0) on any failure:
    - 0.03 on both traces.  Meanwhile the five ``examples/torch_*.py``
    run at once, each in its own process on the card, and must exit 0
    (their asserts hold) within 300 s; their wall times are logged.
+16. The rest of the LM zoo at full width and depth (nothing cut; B = 1
+   prefill at T = 4096), right after gemma-2b's prefill, which must leave
+   under 4 GiB allocated: olmoe-1b-7b (16 x ``attn_moe``, 64 experts top
+   8), moonshot-v1-16b-a3b (48 x ``attn_moe``, top 6), recurrentgemma-2b
+   (8 x (rglru, rglru, attn_local) and 2 rglru remainder blocks),
+   xlstm-350m (3 x 8 mLSTM / sLSTM blocks), internvl2-1b and
+   musicgen-large (dense ``attn`` behind stub frontends, through
+   ``forward(embeds=)``), random bf16 weights from ``init_params`` with a
+   seeded generator on the card.  The archs with causal attention go
+   through phase 7's checks: the flash kernel launches once per ``attn``
+   or ``attn_moe`` layer, each launch held to the plain version on its
+   in-model inputs, the hidden states within twice the bf16 noise of the
+   plain-attention path; logged: tokens/s, peak memory, the model-FLOP
+   share of 989 TFLOP/s from active params and, for the MoE archs, the
+   share of (token, choice) pairs the capacity dropped.  recurrentgemma
+   and xlstm launch no hand-written kernel (``attn_local`` is the plain
+   windowed attention, the recurrences are plain torch), and on 64
+   tokens of one lane their decode is held to their prefill: with every
+   cache in f32 and f32 params within 1e-4 in relative L2; with the JAX
+   package's cache dtypes (recurrentgemma's f32 params, xlstm's bf16)
+   within twice the bf16 noise (the bf16 prefill's distance from the f32
+   one), xlstm's argmax equal wherever the prefill's top-two margin
+   exceeds twice that position's bf16-vs-f32 logit difference (JAX's own
+   1e-2 margin is counted and logged: at 64 positions JAX's bf16 decode
+   flips there too).  Then 128 lanes decode 16 steps (new tokens/s), the
+   cache's bytes equal at seq_len 4096 and 32,768.  One more prefill of
+   each arch times its plain layers between syncs (the MoE blocks and
+   one's operator count, the RG-LRU scans, the windowed attention, the
+   sLSTM loops) as shares of that forward's wall.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
@@ -263,7 +292,7 @@ counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
 engine's, phase 9's, 10's, 11's, 12's arms and 13's segments and
 scenario runs, phase 14's training loop and prefill, phase 15's oracle
-runs) and read just after it.
+runs, phase 16's prefills and decodes) and read just after it.
 
 The second-to-last line is the kernels' JSON record (each with the
 launch floor, ``floor_ms``), the last line
@@ -327,6 +356,14 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_ROW_TOL = {"bfloat16": 2 ** -7, "float32": 2 ** -16}
 FLASH_TILE = 128        # the bf16 kernel's query tile; its KV tile at D <= 128
 PREFILL_T, PREFILL_LONG_T = 4096, 32_768
+# Phase 16: the zoo's last six archs at full width, B = 1 prefill; the
+# recurrent archs' decode checked on 64 tokens and run at 128 lanes.
+ZOO_ARCHS = ("olmoe-1b-7b", "moonshot-v1-16b-a3b", "recurrentgemma-2b",
+             "xlstm-350m", "internvl2-1b", "musicgen-large")
+ZOO_START_GIB = 4           # the most allocated when the phase starts
+ZOO_CHECK_T = 64
+ZOO_F32_TOL = 1e-4          # f32 decode with f32 caches against the prefill
+ZOO_DECODE = dict(lanes=128, steps=16, seq_len=4096)
 # Phase 9: benchmarks/tenants.py's three-tenant mix scaled to the table
 # (a steady zipf service, an LFU-friendly scan tenant, a flash crowd of
 # 8-block objects), run in CHUNKS chunks; phase 10: YCSB-B with the L0
@@ -3004,6 +3041,25 @@ def arch_params(dev, arch: str):
     return cfg, params
 
 
+def flash_layers(cfg) -> int:
+    """The layers whose prefill attention is the flash kernel: the causal
+    kinds (``attn_local`` takes the plain windowed attention)."""
+    kinds = list(cfg.block_pattern) * cfg.n_periods + list(cfg.remainder)
+    return sum(k in ("attn", "attn_moe") for k in kinds)
+
+
+def prefill_input(dev, cfg, t: int, g) -> dict:
+    """forward's input of B = 1, T = t, drawn from ``g``: tokens, or for a
+    stub frontend (internvl2-1b, musicgen-large) precomputed bf16
+    embeddings at the token table's scale (0.02)."""
+    import torch
+    if cfg.uses_tokens:
+        return {"tokens": torch.randint(1, cfg.vocab_size, (1, t),
+                                        generator=g, device=dev)}
+    return {"embeds": (torch.randn((1, t, cfg.d_model), generator=g,
+                                   device=dev) * 0.02).to(torch.bfloat16)}
+
+
 def run_prefill(dev, card: str, cfg, params, results: dict,
                 long_t: bool = True) -> dict:
     """Phase 7 for one arch: T = 4096, and T = 32,768 where ``long_t``.
@@ -3015,20 +3071,22 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
     from repro_torch.models import forward
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    toks = torch.randint(1, cfg.vocab_size, (1, PREFILL_T), generator=g,
-                         device=dev)
-    forward(params, cfg, tokens=toks)           # warm-up (cuBLAS, kernel)
+    inp = prefill_input(dev, cfg, PREFILL_T, g)
+    n_flash = flash_layers(cfg)
+    forward(params, cfg, **inp)                 # warm-up (cuBLAS, kernel)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     t0 = time.perf_counter()
-    h = forward(params, cfg, tokens=toks)
+    h = forward(params, cfg, **inp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = ops.launches()
-    if launches["flash_attention"] != cfg.n_layers:
+    if launches["flash_attention"] != n_flash:
         raise AssertionError(f"{cfg.name} prefill launched flash_attention "
                              f"{launches['flash_attention']} times, not "
-                             f"{cfg.n_layers}")
+                             f"{n_flash}")
     r = results["flash_attention"]
     suffix = "" if "launches" not in r else "_" + cfg.name.replace("-", "_")
     r["launches" + suffix] = launches["flash_attention"]
@@ -3042,8 +3100,8 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
         return o
 
     with mock.patch.object(ops, "flash_attention_op", held):
-        forward(params, cfg, tokens=toks)
-    if len(errs) != cfg.n_layers:
+        forward(params, cfg, **inp)
+    if len(errs) != n_flash:
         raise AssertionError(f"{cfg.name} prefill: {len(errs)} attention "
                              "calls")
 
@@ -3053,7 +3111,7 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
                      ("full_attention", full_attention)):
         with mock.patch.object(ops, "flash_attention_op", fn):
             ops.reset_launches()
-            plain[name] = forward(params, cfg, tokens=toks).float()
+            plain[name] = forward(params, cfg, **inp).float()
             if ops.launches()["flash_attention"] != 0:
                 raise AssertionError("a plain forward launched the kernel")
     if not bool(torch.isfinite(h).all()):
@@ -3068,6 +3126,7 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
     lg_ref = h_ref[0, -16:] @ table.T
     noise = float((lg - lg_ref).abs().max())
     out = dict(t=PREFILL_T, wall_s=wall, tokens_per_s=PREFILL_T / wall,
+               peak_gib=peak / 2**30,
                layer_max_abs_err=max(e for e, _ in errs),
                layer_row_err=max(rw for _, rw in errs),
                rel_l2=rel, rel_l2_full_attention=rel_full,
@@ -3075,7 +3134,8 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
                launches=launches["flash_attention"])
     r["layer_row_err" + suffix] = out["layer_row_err"]
     log(f"[{card}] prefill {cfg.name} T={PREFILL_T}: {wall * 1e3:.1f} ms, "
-        f"{PREFILL_T / wall:.0f} tokens/s, flash launches "
+        f"{PREFILL_T / wall:.0f} tokens/s, peak {peak / 2**30:.2f} GiB, "
+        f"flash launches "
         f"{launches['flash_attention']}, each within {out['layer_max_abs_err']:.3g} "
         f"(a row within {out['layer_row_err']:.3g}) of the plain version "
         f"on its inputs; against the plain-attention path "
@@ -3101,7 +3161,7 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
     wall = time.perf_counter() - t0
     n = ops.launches()["flash_attention"]
     peak = torch.cuda.max_memory_allocated(dev)
-    if n != cfg.n_layers or not bool(torch.isfinite(h).all()):
+    if n != n_flash or not bool(torch.isfinite(h).all()):
         raise AssertionError(f"prefill T={PREFILL_LONG_T}: {n} launches, "
                              f"finite {bool(torch.isfinite(h).all())}")
     out.update(long_t=PREFILL_LONG_T, long_wall_s=wall,
@@ -3110,6 +3170,331 @@ def run_prefill(dev, card: str, cfg, params, results: dict,
     log(f"[{card}] prefill {cfg.name} T={PREFILL_LONG_T}, B=1: {wall:.2f} s, "
         f"{PREFILL_LONG_T / wall:.0f} tokens/s, peak {peak / 2**30:.1f} GiB, "
         f"flash launches {n}")
+    return out
+
+
+def cast_tree(tree, dtype):
+    """A param or cache tree with every floating leaf cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def prefill_flops(cfg, t: int) -> float:
+    """Model FLOPs of a B = 1 prefill forward of t tokens: 2 a weight a
+    token over the active params (``active_param_count``: k of the
+    experts), the token tables left out (the forward stops at the final
+    norm), and the causal attention of every flash layer (QK^T and PV
+    over the t (t + 1) / 2 pairs, 2 FLOPs a multiply-add)."""
+    from repro_torch.models import active_param_count
+    tables = (1 if cfg.tie_embeddings else 2) * cfg.padded_vocab * cfg.d_model
+    n = active_param_count(cfg) - tables
+    attn = flash_layers(cfg) * 2 * 2 * cfg.n_heads * cfg.hd * t * (t + 1) / 2
+    return 2 * n * t + attn
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, spent: list):
+    """Patch ``module.name`` so that each call is timed between two device
+    syncs (its wall goes to ``spent``)."""
+    from unittest import mock
+    import torch
+    fn = getattr(module, name)
+
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    with mock.patch.object(module, name, call):
+        yield
+
+
+@contextlib.contextmanager
+def counted_ops(module, name: str, ops_of: list):
+    """Patch ``module.name`` so that its first call's operators are listed
+    in ``ops_of`` (an eager count: the launches of one layer's plain
+    torch)."""
+    from unittest import mock
+    from torch.utils._python_dispatch import TorchDispatchMode
+    fn = getattr(module, name)
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops_of.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def call(*a, **kw):
+        if ops_of:
+            return fn(*a, **kw)
+        with Count():
+            return fn(*a, **kw)
+
+    with mock.patch.object(module, name, call):
+        yield
+
+
+def zoo_shares(dev, cfg, params, inp) -> dict:
+    """One more prefill forward with each of the arch's plain layers timed
+    between syncs (the MoE blocks, the RG-LRU scans, the windowed
+    attention, the sLSTM loops), each as a share of that forward's wall
+    (the syncs add to it); for an MoE arch, a last forward counts one MoE
+    block's operators."""
+    import torch
+    from repro_torch.models import attention, model, rglru, xlstm
+    from repro_torch.models import forward
+    parts = {"moe": (model, "moe_block"), "rglru_scan": (rglru, "rglru_scan"),
+             "windowed_attention": (attention, "full_attention"),
+             "slstm_loop": (xlstm, "slstm_scan")}
+    kinds = set(cfg.block_pattern)
+    want = [k for k, on in (("moe", "attn_moe" in kinds),
+                            ("rglru_scan", "rglru" in kinds),
+                            ("windowed_attention", "attn_local" in kinds),
+                            ("slstm_loop", "slstm" in kinds)) if on]
+    spent = {k: [] for k in want}
+    with contextlib.ExitStack() as stack:
+        for k in want:
+            stack.enter_context(timed_calls(*parts[k], spent[k]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(params, cfg, **inp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {f"{k}_share": sum(v) / wall for k, v in spent.items()}
+    out.update({f"{k}_calls": len(v) for k, v in spent.items()})
+    out["timed_wall_s"] = wall
+    if "moe" in want:
+        moe_ops: list = []
+        with counted_ops(*parts["moe"], moe_ops):
+            forward(params, cfg, **inp)
+        out["moe_ops"] = len(moe_ops)
+    return out
+
+
+def moe_dropped(cfg, params, inp) -> dict:
+    """The share of (token, choice) pairs the capacity dropped over a
+    prefill forward, in all and in its first and last MoE layers."""
+    from unittest import mock
+    from repro_torch.models import forward, moe
+    route, seen = moe.moe_route, []
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        seen.append((int(r.keep.sum()), r.keep.numel()))
+        return r
+
+    with mock.patch.object(moe, "moe_route", counted):
+        forward(params, cfg, **inp)
+    return dict(dropped=1 - sum(k for k, _ in seen) / sum(n for _, n in seen),
+                dropped_first_layer=1 - seen[0][0] / seen[0][1],
+                dropped_last_layer=1 - seen[-1][0] / seen[-1][1],
+                moe_layers=len(seen))
+
+
+def decoded_logits(dev, cfg, params, toks, f32_caches: bool = False):
+    """The f32 logits [T, vocab] of ``toks`` [1, T] decoded one by one
+    from a fresh cache: the JAX package's cache dtypes, or every cache
+    leaf in f32."""
+    import torch
+    from repro_torch.serve import init_cache
+    from repro_torch.serve.decode import decode_logits
+    cache = init_cache(cfg, 1, toks.shape[1], dev)
+    if f32_caches:
+        cache = cast_tree(cache, torch.float32)
+    return torch.cat([decode_logits(params, cfg, cache,
+                                    tokens=toks[:, i:i + 1])[0]
+                      for i in range(toks.shape[1])])[:, :cfg.vocab_size]
+
+
+def prefill_logits(cfg, params, toks):
+    """The f32 logits [T, vocab] of one prefill forward over ``toks``."""
+    from repro_torch.models import forward
+    table = params["embed" if cfg.tie_embeddings else "unembed"].float()
+    return (forward(params, cfg, tokens=toks)[0].float()
+            @ table.T)[:, :cfg.vocab_size]
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def check_recurrent_decode(dev, card: str, cfg, params) -> dict:
+    """Phase 16's decode-against-prefill checks of a recurrent arch, on
+    ZOO_CHECK_T tokens of one lane.  recurrentgemma-2b (params in f32):
+    with f32 caches the decode must equal the prefill within
+    ZOO_F32_TOL in relative L2; with the JAX package's caches (bf16 conv
+    tail and ring) within twice the bf16 noise, the distance of the bf16
+    prefill from the f32 one.  xlstm-350m (JAX decodes it in bf16 only):
+    the bf16 decode within twice that noise of the bf16 prefill, the
+    argmax equal wherever the prefill's top-two margin exceeds twice the
+    position's largest bf16-vs-f32 logit difference; the f32 params with
+    f32 caches within ZOO_F32_TOL.  JAX's own criterion (the argmax where
+    the margin exceeds 1e-2) is counted and logged."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    toks = torch.randint(1, cfg.vocab_size, (1, ZOO_CHECK_T), generator=g,
+                         device=dev)
+    p32 = cast_tree(params, torch.float32)
+    pre32 = prefill_logits(cfg, p32, toks)
+    pre16 = prefill_logits(cfg, params, toks)
+    f32_rel = rel_l2(decoded_logits(dev, cfg, p32, toks, f32_caches=True),
+                     pre32)
+    noise = rel_l2(pre16, pre32)
+    out = dict(check_tokens=ZOO_CHECK_T, f32_caches_rel_l2=f32_rel,
+               bf16_noise_rel_l2=noise)
+    bf16 = cfg.name.startswith("xlstm")
+    pre = pre16 if bf16 else pre32
+    dec = decoded_logits(dev, cfg, params if bf16 else p32, toks)
+    rel = rel_l2(dec, pre)
+    top = torch.topk(pre, 2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    flip = dec.argmax(-1) != pre.argmax(-1)
+    sure = margin > 2 * (pre16 - pre32).abs().amax(-1)
+    jax_sure = margin > 1e-2
+    out.update(rel_l2=rel, argmax_checked=int(sure.sum()),
+               argmax_flips_checked=int((flip & sure).sum()),
+               jax_margin_positions=int(jax_sure.sum()),
+               jax_margin_flips=int((flip & jax_sure).sum()))
+    kind = "bf16" if bf16 else "f32 params, JAX's"
+    log(f"[{card}] {cfg.name} decode of {ZOO_CHECK_T} tokens vs prefill: "
+        f"f32 caches relative L2 {f32_rel:.3g} (limit {ZOO_F32_TOL:g}); "
+        f"{kind} caches {rel:.3g} (limit {2 * noise:.3g}, twice the bf16 "
+        f"prefill's distance from the f32 one); argmax equal at "
+        f"{out['argmax_checked'] - out['argmax_flips_checked']} of "
+        f"{out['argmax_checked']} positions past twice the bf16 noise, "
+        f"{out['jax_margin_flips']} flips of {out['jax_margin_positions']} "
+        f"positions past JAX's margin of 1e-2")
+    if not f32_rel <= ZOO_F32_TOL:
+        raise AssertionError(f"{cfg.name}: the f32 decode is {f32_rel:.3g} "
+                             f"from the f32 prefill (limit {ZOO_F32_TOL})")
+    if not rel <= 2 * noise:
+        raise AssertionError(f"{cfg.name}: the decode is {rel:.3g} from the "
+                             f"prefill, over twice the bf16 noise {noise:.3g}")
+    if out["argmax_flips_checked"]:
+        raise AssertionError(f"{cfg.name}: the decode's argmax differs from "
+                             f"the prefill's where the margin is over twice "
+                             f"the bf16 noise")
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+    return out
+
+
+def zoo_decode(dev, card: str, cfg, params) -> dict:
+    """Phase 16's serving figure of a recurrent arch: ZOO_DECODE lanes
+    for its steps (bf16 params, the JAX package's cache dtypes), after one
+    warm-up step; the cache's bytes at seq_len 4096 and at 32,768 (the
+    decode_32k cell's), which must be equal (a 2,048-row ring and O(1)
+    recurrent states)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import init_cache
+    from repro_torch.serve.decode import decode_logits
+    z = ZOO_DECODE
+    nbytes = {}
+    for seq in (z["seq_len"], 32_768):
+        c = init_cache(cfg, z["lanes"], seq, dev)
+        nbytes[seq] = tree_bytes(c)
+        del c
+    if nbytes[z["seq_len"]] != nbytes[32_768]:
+        raise AssertionError(f"{cfg.name}: the decode cache grows with "
+                             f"seq_len: {nbytes}")
+    cache = init_cache(cfg, z["lanes"], z["seq_len"], dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    tok = torch.randint(1, cfg.vocab_size, (z["lanes"], 1), generator=g,
+                        device=dev)
+    tok = decode_logits(params, cfg, cache, tokens=tok)[:, -1,
+                                                        :cfg.vocab_size
+                                                        ].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(z["steps"]):
+        lg = decode_logits(params, cfg, cache, tokens=tok)
+        tok = lg[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(ops.launches().values()) or not torch.isfinite(lg).all():
+        raise AssertionError(f"{cfg.name} decode: a hand-written kernel "
+                             f"launched, or non-finite logits")
+    n = z["lanes"] * z["steps"]
+    out = dict(decode_lanes=z["lanes"], decode_steps=z["steps"],
+               decode_wall_s=wall, decode_tokens_per_s=n / wall,
+               decode_step_ms=wall * 1e3 / z["steps"],
+               cache_bytes=nbytes[z["seq_len"]])
+    log(f"[{card}] {cfg.name} decode: {z['lanes']} lanes x {z['steps']} "
+        f"steps in {wall:.2f} s = {n / wall:.0f} new tokens/s "
+        f"({wall * 1e3 / z['steps']:.1f} ms a step); cache "
+        f"{nbytes[z['seq_len']] / 2**30:.3f} GiB at seq_len "
+        f"{z['seq_len']} and at 32,768")
+    return out
+
+
+def run_zoo(dev, card: str, results: dict) -> dict:
+    """Phase 16: the six archs of the zoo's last slice at full width."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    t_phase = time.perf_counter()
+    alloc = torch.cuda.memory_allocated(dev)
+    log(f"phase 16: the zoo at full width; {alloc / 2**30:.2f} GiB "
+        f"allocated at its start")
+    if alloc >= ZOO_START_GIB * 2**30:
+        raise AssertionError(f"phase 16 starts with {alloc / 2**30:.2f} GiB "
+                             f"allocated (limit {ZOO_START_GIB})")
+    out = {}
+    for arch in ZOO_ARCHS:
+        t_arch = time.perf_counter()
+        cfg, params = arch_params(dev, arch)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        inp = prefill_input(dev, cfg, PREFILL_T, g)
+        if flash_layers(cfg):
+            r = run_prefill(dev, card, cfg, params, results, long_t=False)
+            r["model_flop_share"] = (prefill_flops(cfg, PREFILL_T)
+                                     / r["wall_s"] / BF16_FLOP_PER_S)
+            if cfg.n_experts:
+                r.update(moe_dropped(cfg, params, inp))
+        else:
+            forward(params, cfg, **inp)         # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            h = forward(params, cfg, **inp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if any(ops.launches().values()) or not torch.isfinite(h).all():
+                raise AssertionError(f"{arch} prefill: {ops.launches()} "
+                                     f"launches (0 expected), finite "
+                                     f"{bool(torch.isfinite(h).all())}")
+            del h
+            r = dict(t=PREFILL_T, wall_s=wall, tokens_per_s=PREFILL_T / wall,
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                     launches=0)
+            log(f"[{card}] prefill {arch} T={PREFILL_T}: {wall * 1e3:.1f} ms, "
+                f"{PREFILL_T / wall:.0f} tokens/s, peak {r['peak_gib']:.2f} "
+                f"GiB, 0 hand-written launches")
+        r.update(zoo_shares(dev, cfg, params, inp))
+        if not flash_layers(cfg):
+            r.update(check_recurrent_decode(dev, card, cfg, params))
+            r.update(zoo_decode(dev, card, cfg, params))
+        r["arch_wall_s"] = time.perf_counter() - t_arch
+        log(f"[{card}] phase 16 {arch}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in r.items()
+            if isinstance(v, (int, float)) and k != "t"))
+        out[arch] = r
+        del params, inp
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {len(ZOO_ARCHS)} archs in {out['wall_s']:.1f} s")
     return out
 
 
@@ -3793,6 +4178,7 @@ def main() -> int:
                                           long_t=False)
     del params
     torch.cuda.empty_cache()
+    e2e["zoo"] = run_zoo(dev, card, results)
     prof_dir = Path(a.out).parent if a.out else None
     e2e["tenants"] = run_tenants(dev, card, results, a.profile, prof_dir)
     e2e["l0"] = run_l0(dev, card, results, a.profile, prof_dir)
@@ -3830,6 +4216,8 @@ def main() -> int:
              "plain_ms_tenant", "bound_ms_tenant", "ms_w128",
              "launches_tenants", "launches_l0", "launches_dm",
              "launches_failover", "launches_elastic",
+             *(f"{k}_{a.replace('-', '_')}" for a in ZOO_ARCHS
+               for k in ("launches", "layer_row_err")),
              *(f + k for k in ("_4k", "_gemma_4k") for f in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")))
     kernels = []

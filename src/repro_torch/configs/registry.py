@@ -1,9 +1,6 @@
-"""Arch and shape registry, as in ``repro/configs/registry.py``.
-
-Only the dense archs, whose layers are all ``"attn"`` blocks, are
-ported; the six others (MoE, hybrid, SSM, VLM, audio) raise.  The JAX
-package's ``input_specs`` and ``cell_supported`` are dry-run and TPU
-tooling and have no counterpart here.
+"""Arch and shape registry, as in ``repro/configs/registry.py``: all ten
+archs of the JAX package.  Its ``input_specs`` and ``cell_supported``
+are dry-run and TPU tooling and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,19 +16,18 @@ _MODULES = {
     "smollm-135m": "smollm_135m",
     "granite-3-2b": "granite_3_2b",
     "gemma-2b": "gemma_2b",
+    "internvl2-1b": "internvl2_1b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "musicgen-large": "musicgen_large",
+    "xlstm-350m": "xlstm_350m",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
-# Archs of the JAX package whose block kinds are not ported yet.
-NOT_PORTED = ("internvl2-1b", "recurrentgemma-2b", "musicgen-large",
-              "xlstm-350m", "moonshot-v1-16b-a3b", "olmoe-1b-7b")
 
 ARCHS = tuple(_MODULES)
 
 
 def get_arch(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: its block kinds (MoE, RG-LRU, xLSTM, local attention, "
-            "stub frontends) are ROADMAP Queue 1 item 16, not yet ported")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
 

@@ -15,9 +15,10 @@ one of two ways, chosen by its ``plain`` argument:
   ``chunked_attention`` above, which autograd differentiates.  The JAX
   training path reaches no Pallas kernel either.
 
-Sliding-window blocks (``attn_local``) are not in the port yet; their
-window masks wait for ``attn_local``, which is to route its windowed
-case through the two plain strategies.
+A sliding window (``window > 0``, the ``attn_local`` blocks) always
+takes the JAX package's own plain strategies, as JAX chooses them
+(``full_attention`` up to 8192 tokens, ``chunked_attention`` above):
+neither the Pallas flash kernel nor the port's has a window.
 
 Decode (one new token against a KV cache) lives in ``serve/decode.py``.
 """
@@ -98,16 +99,13 @@ def chunked_attention(q, k, v, *, chunk: int = 1024, window: int = 0,
 
 def attention_block(x, params, cfg, positions, *, window: int = 0,
                     plain: bool = False):
-    """Causal self-attention over x: [B, T, d_model]. params: wq/wk/wv/wo.
-    ``plain``: the JAX package's plain strategies (the training path),
-    else the flash op (see the module docstring).
+    """Causal self-attention over x: [B, T, d_model], within the last
+    ``window`` positions where ``window > 0``.  params: wq/wk/wv/wo.
+    ``plain`` (or a window): the JAX package's plain strategies, else
+    the flash op (see the module docstring).
 
     The JAX package's sharding annotation (``maybe_shard``) has no
     counterpart on one card."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window attention (attn_local) is ROADMAP Queue 1 item "
-            "16, not yet ported")
     b, t, _ = x.shape
     hd = cfg.hd
     q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, hd)
@@ -117,10 +115,10 @@ def attention_block(x, params, cfg, positions, *, window: int = 0,
     k = rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
-    if not plain:
+    if not (plain or window):
         o = ops.flash_attention_op(q, k, v)
     elif t > 8192:
-        o = chunked_attention(q, k, v)
+        o = chunked_attention(q, k, v, window=window)
     else:
-        o = full_attention(q, k, v)
+        o = full_attention(q, k, v, window=window)
     return o.reshape(b, t, cfg.n_heads * hd) @ params["wo"]

@@ -1,9 +1,5 @@
 """Shared neural building blocks, as in ``repro/models/layers.py``
-(pure functions on tensors; bf16 activations on the main path).
-
-``layer_norm`` belongs to the families not yet ported (ROADMAP Queue 1
-item 16) and is not here.
-"""
+(pure functions on tensors; bf16 activations on the main path)."""
 
 from __future__ import annotations
 
@@ -18,6 +14,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm, the inner math in f32; the variance is the mean of
+    squared deviations (``jnp.var``)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``, op by op:
+    ``max(x, 0) + log1p(exp(-|x|))``, each op rounded in x's dtype.  In
+    bf16 this gives JAX's bits; ``F.softplus`` (one rounding,
+    ``log1p(exp(x))`` below its threshold of 20) differs from it in about
+    one bf16 value of ten."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,14 +1,16 @@
 """The LM zoo's model, as in ``repro/models/model.py``: one
 ``ModelConfig`` for every arch, layers grouped into a repeating block
-pattern whose per-period params are stacked on a leading axis.
+pattern whose per-period params are stacked on a leading axis, and the
+remainder blocks (``n_layers`` not a multiple of the pattern) unstacked
+under ``params["rem"]``.
 
-Only the ``"attn"`` block kind is ported (the dense archs); the others
-(``attn_moe``, ``attn_local``, ``rglru``, ``mlstm``, ``slstm``) and the
-remainder blocks of mixed patterns raise ``NotImplementedError``.
-Params are a dict of tensors with the JAX package's tree, keys and
-layout (``wq`` is [d, H*hd] and is applied as ``x @ w``), so
-:func:`params_from_numpy` carries the JAX package's params across with
-no transpose.
+Block kinds: ``"attn"`` (dense), ``"attn_local"`` (a sliding window),
+``"attn_moe"`` (attention and a routed MoE FFN, ``models/moe.py``),
+``"rglru"`` (``models/rglru.py``), ``"mlstm"`` and ``"slstm"``
+(``models/xlstm.py``).  Params are a dict of tensors with the JAX
+package's tree, keys and layout (``wq`` is [d, H*hd] and is applied as
+``x @ w``), so :func:`params_from_numpy` carries the JAX package's
+params across with no transpose.
 
 ``forward`` is the prefill forward (no labels), or the training loss
 (labels): the JAX package's ``lax.scan`` over periods is a Python loop
@@ -30,8 +32,11 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
+from repro_torch.models.moe import moe_block
+from repro_torch.models.rglru import rglru_block
+from repro_torch.models.xlstm import mlstm_block, slstm_block
 
-PORTED_KINDS = ("attn",)
+ATTN_KINDS = ("attn", "attn_local", "attn_moe")
 REMAT = ("none", "full", "dots", "save_outs")
 
 
@@ -84,43 +89,92 @@ class ModelConfig:
         return self.frontend == ""
 
 
-def check_config(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port: block kinds other than
-    ``"attn"``, and remainder blocks (which only mixed patterns have)."""
-    for kind in cfg.block_pattern:
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} (MoE, local attention, RG-LRU, "
-                "xLSTM) is ROADMAP Queue 1 item 16, not yet ported")
-    if cfg.remainder:
-        raise NotImplementedError(
-            f"{cfg.name}: remainder blocks {cfg.remainder} belong to mixed "
-            "block patterns, ROADMAP Queue 1 item 16, not yet ported")
-
-
 # ----------------------------------------------------------------------
 # Parameter construction
 # ----------------------------------------------------------------------
 
-def _block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Shapes of one ``"attn"`` block's params."""
+def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
+    """Shapes of one block's params."""
     d = cfg.d_model
     hd = cfg.hd
-    return {
-        "norm1": (d,), "norm2": (d,),
-        "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
-        "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
-        "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
-        "w_down": (cfg.d_ff, d),
-    }
+    if kind in ATTN_KINDS:
+        s: Dict[str, tuple] = {
+            "norm1": (d,), "norm2": (d,),
+            "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+            "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+        }
+        if kind == "attn_moe":
+            s.update(router=(d, cfg.n_experts),
+                     w_gate=(cfg.n_experts, d, cfg.d_ff),
+                     w_up=(cfg.n_experts, d, cfg.d_ff),
+                     w_down=(cfg.n_experts, cfg.d_ff, d))
+        else:
+            s.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                     w_down=(cfg.d_ff, d))
+        return s
+    if kind == "rglru":
+        dr = d  # lru width = d_model (recurrentgemma-2b)
+        return {
+            "norm1": (d,), "norm2": (d,),
+            "w_y": (d, dr), "w_x": (d, dr), "conv_w": (4, dr),
+            "w_a": (dr, dr), "b_a": (dr,), "w_i": (dr, dr), "b_i": (dr,),
+            "lam": (dr,), "w_o": (dr, d),
+            "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+            "w_down": (cfg.d_ff, d),
+        }
+    if kind == "mlstm":
+        di = cfg.mlstm_d_in
+        h = cfg.n_heads
+        return {
+            "norm1": (d,),
+            "w_up_x": (d, di), "w_up_z": (d, di),
+            "w_q": (di, di), "w_k": (di, di), "w_v": (di, di),
+            "w_f": (di, h), "b_f": (h,), "w_i": (di, h), "b_i": (h,),
+            "w_down": (di, d),
+        }
+    if kind == "slstm":
+        h = cfg.n_heads
+        dh = d // h
+        ff = int(round(d * 4 / 3))
+        return {
+            "norm1": (d,),
+            "w_zifo": (d, 4 * d), "r_kernel": (h, dh, 4 * dh),
+            "w_proj": (d, d),
+            "w_ff_gate": (d, ff), "w_ff_up": (d, ff), "w_ff_down": (ff, d),
+        }
+    raise ValueError(kind)
+
+
+def _tree_shapes(cfg: ModelConfig):
+    """(shape, count) of every param leaf: the tables, the period blocks
+    (n_periods each) and the remainder blocks (one each), with each
+    leaf's name."""
+    pv, d = cfg.padded_vocab, cfg.d_model
+    out = [("embed", (pv, d), 1), ("final_norm", (d,), 1)]
+    if not cfg.tie_embeddings:
+        out.append(("unembed", (pv, d), 1))
+    for kinds, n in ((cfg.block_pattern, cfg.n_periods),
+                     (cfg.remainder, 1)):
+        for kind in kinds:
+            out += [(name, s, n) for name, s in
+                    _block_shapes(cfg, kind).items()]
+    return out
 
 
 def param_count(cfg: ModelConfig) -> int:
-    check_config(cfg)
-    pv, d = cfg.padded_vocab, cfg.d_model
-    tables = (1 if cfg.tie_embeddings else 2) * pv * d
-    block = sum(math.prod(s) for s in _block_shapes(cfg).values())
-    return tables + d + cfg.n_layers * block
+    return sum(n * math.prod(s) for _, s, n in _tree_shapes(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """MoE: params touched per token (for 6*N_active*D roofline).  As the
+    JAX package counts them: every leaf whose name holds ``w_gate``,
+    ``w_up`` or ``w_down`` is an expert's, scaled by top_k / n_experts."""
+    total = param_count(cfg)
+    if cfg.n_experts and cfg.top_k:
+        expert = sum(n * math.prod(s) for name, s, n in _tree_shapes(cfg)
+                     if any(w in name for w in ("w_gate", "w_up", "w_down")))
+        total = total - expert + int(expert * cfg.top_k / cfg.n_experts)
+    return total
 
 
 def _normal(shape, std, generator, dtype, device):
@@ -128,15 +182,23 @@ def _normal(shape, std, generator, dtype, device):
                         device=device) * std).to(dtype)
 
 
-def _init_block(out: Dict[str, torch.Tensor], cfg: ModelConfig, generator,
-                dtype, device) -> None:
-    """Fill one block's params (the slices ``out`` holds) in the JAX
-    package's scheme: zero norms, normal * 1/sqrt(fan_in) weights."""
-    for name, shape in sorted(_block_shapes(cfg).items()):
-        if name.startswith("norm"):
+def _init_block(out: Dict[str, torch.Tensor], cfg: ModelConfig, kind: str,
+                generator, dtype, device) -> None:
+    """Fill one block's params (the tensors or slices ``out`` holds) in
+    the JAX package's scheme: zero norms and biases, RG-LRU's ``lam`` a
+    linspace over [2.2, 6.9], normal * 1/sqrt(fan_in) weights.  Every
+    ``b_*`` is zero, the mLSTM forget bias ``b_f`` included: the JAX
+    package's ``b_f = 3.0`` branch comes after ``startswith("b_")`` and
+    is never reached."""
+    for name, shape in sorted(_block_shapes(cfg, kind).items()):
+        if name.startswith("norm") or name.startswith("b_"):
             out[name].zero_()
+        elif name == "lam":
+            out[name].copy_(torch.linspace(2.2, 6.9, shape[0],
+                                           dtype=torch.float32))
         else:
-            std = 1.0 / math.sqrt(max(shape[-2], 1))
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            std = 1.0 / math.sqrt(max(fan_in, 1))
             out[name].copy_(_normal(shape, std, generator, dtype, device))
 
 
@@ -145,7 +207,6 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     """Random params with the JAX package's tree and init scheme, drawn
     from ``generator`` (whose device must be ``device``; default: the
     card).  The numbers are not those of jax.random for the same seed."""
-    check_config(cfg)
     device = torch.device("cuda" if device is None else device)
     pv, d = cfg.padded_vocab, cfg.d_model
     params: Dict[str, Any] = {
@@ -154,17 +215,26 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = _normal((pv, d), 0.02, generator, dtype, device)
+
+    def block(kind, lead=()):
+        return {n: torch.empty(lead + s, dtype=dtype, device=device)
+                for n, s in _block_shapes(cfg, kind).items()}
+
     period: Dict[str, Any] = {}
     for j, kind in enumerate(cfg.block_pattern):
-        stacked = {n: torch.empty((cfg.n_periods,) + s, dtype=dtype,
-                                  device=device)
-                   for n, s in _block_shapes(cfg).items()}
+        stacked = block(kind, (cfg.n_periods,))
         # One period at a time: the f32 draw is one period's size.
         for p in range(cfg.n_periods):
-            _init_block({n: t[p] for n, t in stacked.items()}, cfg,
+            _init_block({n: t[p] for n, t in stacked.items()}, cfg, kind,
                         generator, dtype, device)
         period[f"{j}_{kind}"] = stacked
     params["period"] = period
+    rem: Dict[str, Any] = {}
+    for j, kind in enumerate(cfg.remainder):
+        rem[f"{j}_{kind}"] = blk = block(kind)
+        _init_block(blk, cfg, kind, generator, dtype, device)
+    if rem:
+        params["rem"] = rem
     return params
 
 
@@ -205,32 +275,55 @@ def _checkpointed(fn, *args, **kw):
                            preserve_rng_state=False, **kw)
 
 
-def _apply_block(x, bp, cfg: ModelConfig, positions, plain: bool = False,
-                 save_outs: bool = False):
-    """One ``"attn"`` block.  ``save_outs``: each half under its own
-    checkpoint, so the backward keeps each half's input (x, and x plus
-    the attention output) and recomputes the rest: the residuals of
-    ``save_only_these_names("blk_attn_out", "blk_mlp_out")``, held as
-    the sums the next half reads."""
-    def attn(x):
-        return attention_block(L.rms_norm(x, bp["norm1"]), bp, cfg,
-                               positions, plain=plain)
+def _apply_block(x, bp, cfg: ModelConfig, kind: str, positions,
+                 plain: bool = False, save_outs: bool = False):
+    """One block of any kind.  ``save_outs``: the attention kinds run
+    each half under its own checkpoint, so the backward keeps each
+    half's input (x, and x plus the attention output) and recomputes the
+    rest: the residuals of ``save_only_these_names("blk_attn_out",
+    "blk_mlp_out")``, held as the sums the next half reads.  The
+    recurrent kinds name no output, so JAX's policy recomputes them
+    whole, as ``"full"`` does: one checkpoint around the block."""
+    if kind in ATTN_KINDS:
+        window = cfg.attn_window if kind == "attn_local" else 0
 
-    def mlp(x):
-        return L.gated_mlp(L.rms_norm(x, bp["norm2"]), bp["w_gate"],
-                           bp["w_up"], bp["w_down"], cfg.mlp_kind)
+        def attn(x):
+            return attention_block(L.rms_norm(x, bp["norm1"]), bp, cfg,
+                                   positions, window=window, plain=plain)
 
-    if save_outs:
-        x = x + _checkpointed(attn, x)
-        return x + _checkpointed(mlp, x)
-    x = x + attn(x)
-    return x + mlp(x)
+        def mlp(x):
+            y = L.rms_norm(x, bp["norm2"])
+            if kind == "attn_moe":
+                return moe_block(y, bp, cfg)
+            return L.gated_mlp(y, bp["w_gate"], bp["w_up"], bp["w_down"],
+                               cfg.mlp_kind)
+
+        if save_outs:
+            x = x + _checkpointed(attn, x)
+            return x + _checkpointed(mlp, x)
+        x = x + attn(x)
+        return x + mlp(x)
+
+    def recurrent(x):
+        if kind == "rglru":
+            x = x + rglru_block(L.rms_norm(x, bp["norm1"]), bp, cfg)
+            y = L.rms_norm(x, bp["norm2"])
+            return x + L.gated_mlp(y, bp["w_gate"], bp["w_up"],
+                                   bp["w_down"], cfg.mlp_kind)
+        if kind == "mlstm":
+            return x + mlstm_block(L.rms_norm(x, bp["norm1"]), bp, cfg)
+        if kind == "slstm":
+            return x + slstm_block(L.rms_norm(x, bp["norm1"]), bp, cfg)
+        raise ValueError(kind)
+
+    return _checkpointed(recurrent, x) if save_outs else recurrent(x)
 
 
 def _save_dots(ctx, op, *args, **kw):
     """``checkpoint_dots_with_no_batch_dims``: keep the outputs of the
     products without batch dims (``x @ w``, which autograd sees as
-    ``mm``); recompute the rest, attention's batched products included."""
+    ``mm``); recompute the rest, attention's and the MoE experts'
+    batched products included."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return ckpt.CheckpointPolicy.MUST_SAVE
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
@@ -242,10 +335,13 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     final hidden states [B, T, d] of the prefill forward.
 
     tokens: int [B, T] (token archs); embeds: [B, T, d] (stub frontends).
-    Without labels every attention layer runs through
-    ``kernels.ops.flash_attention_op`` (forward only); with labels
-    through the JAX package's plain attention, which autograd
-    differentiates (``attention_block``'s ``plain``).
+    Without labels every causal attention layer (``attn``,
+    ``attn_moe``) runs through ``kernels.ops.flash_attention_op``
+    (forward only); with labels through the JAX package's plain
+    attention, which autograd differentiates (``attention_block``'s
+    ``plain``).  ``attn_local`` layers always take the plain windowed
+    attention.  The remainder blocks follow the periods, outside the
+    remat, as in the JAX package.
 
     ``remat``, as the JAX package's ``jax.checkpoint`` of each period:
     ``"none"``; ``"full"`` (``torch.utils.checkpoint`` around each
@@ -255,7 +351,6 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     MLP outputs, see :func:`_apply_block`).  All four give the same
     numbers; they trade memory for recompute.
     """
-    check_config(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r}: expected one of {REMAT}")
     plain = labels is not None
@@ -270,7 +365,7 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
         for j, kind in enumerate(cfg.block_pattern):
             stacked = params["period"][f"{j}_{kind}"]
             xc = _apply_block(xc, {n: w[p] for n, w in stacked.items()},
-                              cfg, positions, plain=plain,
+                              cfg, kind, positions, plain=plain,
                               save_outs=remat == "save_outs")
         return xc
 
@@ -282,6 +377,9 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
                 ckpt.create_selective_checkpoint_contexts, _save_dots))
         else:
             x = period_body(x, p)
+    for j, kind in enumerate(cfg.remainder):
+        x = _apply_block(x, params["rem"][f"{j}_{kind}"], cfg, kind,
+                         positions, plain=plain)
     x = L.rms_norm(x, params["final_norm"])
     if labels is None:
         return x

@@ -187,7 +187,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         loss = forward(p, cfg, tokens=mb.get("tokens"),
                        embeds=mb.get("embeds"), labels=mb["labels"],
                        remat=remat)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        # A leaf the loss never reads (the token table of a stub-frontend
+        # arch with its own unembedding) has a zero gradient, as in JAX.
+        return loss.detach(), torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)
 
     def train_step(params, opt: OptState, batch):
         if n_microbatches == 1:

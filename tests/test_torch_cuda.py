@@ -1357,3 +1357,62 @@ def test_checkpoint_from_card_tensors_restores_on_the_cpu(cuda, tmp_path):
                     tree_leaves(got["params"]) + tree_leaves(got["opt"].master)):
         assert b.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_moe_routing_on_the_card_equals_the_cpu(cuda):
+    """The stable sort keeps equal gates in index order on the card too:
+    the same logits, ties among them, route to the same experts, places
+    and slots as on the CPU (which ``tests/test_torch_zoo_blocks.py``
+    holds bit-equal to JAX's ``lax.top_k`` routing)."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(20)
+    for n, e, k, cf in ((4096, 64, 8, 1.25), (4096, 64, 6, 1.25),
+                        (128, 64, 8, 0.5), (4, 64, 8, 1.25)):
+        ties = torch.from_numpy((rng.integers(0, 6, (n, e)) * 0.25
+                                 ).astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal((n, 256))).to(torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal((256, e)) * 0.05
+                             ).to(torch.bfloat16)
+        for logits in (ties, (x @ w).float()):
+            rc = moe.moe_route(logits, k, cf)
+            rg = moe.moe_route(logits.to(cuda), k, cf)
+            for name in ("topi", "pos", "keep", "idx_buf"):
+                assert torch.equal(getattr(rg, name).cpu(),
+                                   getattr(rc, name)), (n, e, k, name)
+            torch.testing.assert_close(rg.topv.cpu(), rc.topv, rtol=1e-6,
+                                       atol=1e-6)
+        assert (torch.sort(ties, -1, descending=True).values[:, k - 1]
+                == torch.sort(ties, -1, descending=True).values[:, k]
+                ).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_rglru_scan_on_the_card_matches_a_sequential_loop(cuda):
+    """The log-depth scan against h_t = a_t h_{t-1} + b_t one step at a
+    time, both in f32 on the card, with and without a carried state:
+    within 1e-5 (the decay a_t < 1 keeps rounding from growing)."""
+    from repro_torch.models import rglru
+    rng = np.random.default_rng(21)
+    d, t = 256, 1000
+
+    def tn(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale
+                                ).float().to(cuda)
+
+    p = {"w_a": tn(d, d, scale=d ** -0.5), "b_a": tn(d, scale=0.1),
+         "w_i": tn(d, d, scale=d ** -0.5), "b_i": tn(d, scale=0.1),
+         "lam": torch.linspace(2.2, 6.9, d, device=cuda)}
+    u = tn(2, t, d)
+    for h0 in (None, tn(2, d)):
+        y, h_last = rglru.rglru_scan(u, p, h0)
+        a, g = rglru._gates(u, p)
+        b = g * u
+        h = torch.zeros(2, d, device=cuda) if h0 is None else h0
+        want = []
+        for s in range(t):
+            h = a[:, s] * h + b[:, s]
+            want.append(h)
+        want = torch.stack(want, 1)
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(h_last, want[:, -1], rtol=1e-5, atol=1e-5)

@@ -31,15 +31,15 @@ from repro.models import attention as jatt
 from repro.models import init_params as j_init_params
 from repro.models import layers as JL
 from repro.models.model import forward as j_forward
+from repro.models.model import active_param_count as j_active_param_count
 from repro.models.model import param_count as j_param_count
 from repro_torch.configs import ARCHS, get_arch, smoke_config
-from repro_torch.configs.registry import NOT_PORTED
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as tatt
 from repro_torch.models import layers as TL
-from repro_torch.models.model import (ModelConfig, forward, init_params,
-                                      param_count, params_from_numpy,
-                                      params_to_numpy)
+from repro_torch.models.model import (active_param_count, forward,
+                                      init_params, param_count,
+                                      params_from_numpy, params_to_numpy)
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -165,13 +165,6 @@ def test_full_and_chunked_attention_match_jax(window, q_offset):
         atol=2e-5, rtol=2e-5)
 
 
-def test_attention_block_refuses_a_window():
-    cfg = smoke_config(get_arch("smollm-135m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.attention_block(torch.zeros(1, 4, cfg.d_model), {}, cfg,
-                             torch.zeros(1, 4, dtype=torch.int64), window=8)
-
-
 # ---------------------------------------------------------------------------
 # Layers.
 # ---------------------------------------------------------------------------
@@ -227,19 +220,8 @@ def test_configs_and_param_counts_match_jax(arch):
                            j_smoke_config(j_get_arch(arch)))):
         assert dataclasses.asdict(port) == dataclasses.asdict(jax_cfg)
     assert param_count(get_arch(arch)) == j_param_count(j_get_arch(arch))
-
-
-def test_kinds_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(NOT_PORTED[0])
-    cfg = ModelConfig(name="x", family="hybrid", n_layers=2, d_model=16,
-                      n_heads=2, n_kv_heads=1, d_ff=32, vocab_size=64,
-                      block_pattern=("rglru",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, generator=torch.Generator(), device="cpu")
-    odd = dataclasses.replace(cfg, n_layers=3, block_pattern=("attn", "attn"))
-    with pytest.raises(NotImplementedError, match="remainder"):
-        init_params(odd, generator=torch.Generator(), device="cpu")
+    assert (active_param_count(get_arch(arch))
+            == j_active_param_count(j_get_arch(arch)))
 
 
 def _jax_params(cfg_name: str, dtype=jnp.float32, seed: int = 0):
