@@ -7,6 +7,7 @@
     python3 chip_smoke.py --step-only --profile 20
                                               # the step's operators and
                                               # trace alone (no result)
+    python3 chip_smoke.py --dm-only           # phase 11 cold and warm
 
 ``--requests N`` shortens the end-to-end phase; below ~4.5M requests
 the table does not fill, and the run fails its eviction check.
@@ -14,6 +15,10 @@ the table does not fill, and the run fails its eviction check.
 per backend and, with ``--profile``, traces the steps, and stops: it
 needs only ``execute``, ``make`` and ``access_group_``, so it also runs
 from an older checkout's ``src/`` (the before of a change to the step).
+``--dm-only`` runs phase 11's fused YCSB-A twice in a fresh process
+(the first run captures the DM step's graph) with the capture's time,
+the host's time in the replays and the device time of every 512
+replays, and stops; it also runs from an older checkout's ``src/``.
 
 Phases, each of which raises (exit code != 0) on any failure:
 
@@ -285,6 +290,25 @@ Phases, each of which raises (exit code != 0) on any failure:
    each arch times its plain layers between syncs (the MoE blocks and
    one's operator count, the RG-LRU scans, the windowed attention, the
    sLSTM loops) as shares of that forward's wall.
+17. The mesh slice.  (a) The fake-rank dry run (``launch/dryrun.py``) of
+   ``MESH_CELLS`` on both production meshes, (data=16, model=16) and
+   (pod=2, data=16, model=16), over fake CUDA tensors, so the dispatched
+   operators are the card's (the flash kernel's operator); any
+   ``failed`` cell fails the phase.  (b) The card's achieved bf16 matmul
+   rate and copy bandwidth beside the roofline's spec-sheet constants;
+   at yi-9b and gemma-2b prefill, B = 1, T = 4096, with DTensor params on
+   the one-rank mesh, the op counter's FLOPs of each flash call equal
+   PERF.md's hand-worked bound (139 and 69.5 us), and neither the
+   forward nor one flash call measures under 0.95 of its roofline bound
+   (a counter that missed work).  (c) On the one-rank mesh: that
+   prefill launches the flash kernel once a layer under DTensor and
+   equals the plain forward bit for bit; a smollm-135m train step at
+   phase 14's config with 2 microbatches and batch 4, DTensor params and
+   the ZeRO-1 specs live, equals the plain step bit for bit.  (d) The
+   graph audit (``analysis/audit.py``) of the cache entry points over
+   CUDA tensors: only the mirrored dead outputs (``audit.MIRRORED``:
+   the JAX package's audit reports four of the five).  (e) The lint of
+   ``src/repro_torch``: no finding.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
@@ -2016,6 +2040,78 @@ def profile_dm(dev, card: str, cfg, k3, w3, n_groups: int,
         f"kernels/step; by kind, us/step: "
         + ", ".join(f"{c} {t:.1f}" for c, t in
                     sorted(step.items(), key=lambda x: -x[1])))
+
+
+def dm_cold_warm(dev, card: str, tag: str = "") -> list:
+    """``--dm-only``: phase 11's fused run from a fresh cluster twice in
+    this process: cold (the first run: the DM step's graph captured, the
+    process's first kernel calls) and warm.  Each logs its µs a step
+    (wall), the graph's capture time, the host's time in the replays
+    (they block once the launch queue is full, so at the device's pace)
+    and the device time a step of every 512 replays (CUDA events)."""
+    import torch
+    from repro_torch.core import CacheConfig
+    from repro_torch.core import cache as core_cache
+    from repro_torch.dm import Cluster
+    from repro_torch.workloads.gen import interleave, ycsb
+
+    keys, wr = ycsb("A", DM_REQUESTS, n_keys=N_KEYS, seed=SEED)
+    k2, w2 = interleave(keys, DM_SHARDS * DM_LANES, wr)
+    NG = k2.shape[0] // BATCH
+    k3, w3 = dm_inputs(k2, w2, NG, BATCH, dev)
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY)
+    acc = dict(replay=0.0, n=0, capture=0.0)
+    marks = []
+    replay, capture = torch.cuda.CUDAGraph.replay, core_cache.capture_graph
+
+    def timed_replay(graph):
+        if acc["n"] % 512 == 0:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        t0 = time.perf_counter()
+        replay(graph)
+        acc["replay"] += time.perf_counter() - t0
+        acc["n"] += 1
+
+    def timed_capture(fn, pool=None):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = capture(fn, pool)
+        torch.cuda.synchronize(dev)
+        acc["capture"] += time.perf_counter() - t0
+        return out
+
+    torch.cuda.CUDAGraph.replay = timed_replay
+    core_cache.capture_graph = timed_capture
+    out = []
+    try:
+        for run in ("cold", "warm"):
+            cl = Cluster.make(cfg, DM_SHARDS, DM_LANES, SEED, device=dev)
+            acc.update(replay=0.0, n=0, capture=0.0)
+            marks.clear()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            cl.execute(k3, w3, route_factor=DM_ROUTE)
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            dev_ms = [a.elapsed_time(b) / 512 for a, b in zip(marks,
+                                                               marks[1:-1])]
+            r = dict(run=run, us_per_step=wall * 1e6 / NG,
+                     capture_s=acc["capture"],
+                     replay_us=acc["replay"] * 1e6 / max(acc["n"], 1),
+                     device_ms_per_512=dev_ms)
+            out.append(r)
+            log(f"[{card}] {tag}phase 11 fused {run}: "
+                f"{r['us_per_step']:.0f} us/step, capture "
+                f"{r['capture_s']:.2f} s, host in replay() "
+                f"{r['replay_us']:.0f} us each x {acc['n']}, device ms a "
+                f"step by 512 replays {[round(x, 3) for x in dev_ms]}")
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+        core_cache.capture_graph = capture
+    return out
 
 
 def run_dm(dev, card: str, results: dict, profile: int = 0,
@@ -4105,6 +4201,335 @@ def run_examples(card: str, during=None) -> tuple:
     return dict(wall_s=walls, all_s=time.perf_counter() - t0), alongside
 
 
+# ---------------------------------------------------------------------
+# Phase 17: the mesh, the dry run, the roofline, the audit and the lint
+# ---------------------------------------------------------------------
+
+# 17a: cells of the fake-rank dry run over fake CUDA tensors, on both
+# production meshes: row 7's prefill (MQA) and the MoE prefill, the
+# decode over a sequence-sharded (gemma-2b's one KV head) and a
+# head-sharded (musicgen-large) cache, the two recurrent long_500k
+# decodes (a batch of one) and one cell cell_supported skips.  The whole
+# --all run is in PERF.md, taken on the CPU.
+MESH_CELLS = (("gemma-2b", "prefill_32k"), ("olmoe-1b-7b", "prefill_32k"),
+              ("gemma-2b", "decode_32k"), ("musicgen-large", "decode_32k"),
+              ("recurrentgemma-2b", "long_500k"), ("xlstm-350m", "long_500k"),
+              ("yi-9b", "long_500k"))
+ROOF_ARCHS = ("yi-9b", "gemma-2b")      # 17b, at B = 1, T = ROOF_T
+ROOF_T = 4096
+# PERF.md's hand-worked bound of one flash call at ROOF_T, us.
+ROOF_FLASH_US = {"yi-9b": 139.0, "gemma-2b": 69.5}
+ROOF_FLOOR = 0.95       # a measured time under this share of its bound fails
+# 17c: phase 14's config with fewer microbatches.
+MESH_TRAIN = dict(batch=4, microbatches=2)
+
+
+def ms_events(fn, reps: int = 3) -> float:
+    """Wall of one call between CUDA events, the best of ``reps`` after
+    one warm call (for calls too large to capture in a graph)."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b))
+    return best
+
+
+def card_rates(dev) -> dict:
+    """The card's achieved dense bf16 matmul rate (8192^3) and copy
+    bandwidth (a 2 GiB copy: read and write), beside the spec sheet's."""
+    import torch
+    from repro_torch.launch import roofline as rl
+    n = 8192
+    a = torch.randn(n, n, device=dev).to(torch.bfloat16)
+    b = torch.randn(n, n, device=dev).to(torch.bfloat16)
+    mm = time_ms(lambda: a @ b, n=5, reps=4)
+    src = torch.empty(1 << 30, dtype=torch.int16, device=dev)
+    dst = torch.empty_like(src)
+    cp = time_ms(lambda: dst.copy_(src), n=2, reps=4)
+    out = dict(matmul_tflops=2 * n ** 3 / (mm * 1e-3) / 1e12,
+               copy_tb_s=2 * src.numel() * 2 / (cp * 1e-3) / 1e12,
+               spec_tflops=rl.PEAK_FLOPS / 1e12, spec_tb_s=rl.HBM_BW / 1e12)
+    del a, b, src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def counter_bounds(device: str = "cuda") -> dict:
+    """The op counter's bound of one call of each kernel at phase 2's
+    main-path shapes (a 2,097,152-slot table, B = 2048, K = 5, E = 2)
+    and row 7 at yi-9b's T = 32,768 and 4096 and gemma-2b's 4096 (B = 1,
+    bf16), on fake tensors: the larger of its FLOPs over the bf16 peak
+    and its op bytes (every operand read whole, every result written)
+    over HBM's rate, us."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.models.attention import repeat_kv
+    n, B, k, W = N_BUCKETS * ASSOC, 2048, 5, 20
+    out = {}
+    with FakeTensorMode():
+        i64 = lambda *s: torch.empty(s, dtype=torch.int64, device=device)
+        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
+        flag = torch.empty(B, dtype=torch.bool, device=device)
+        cols = [i64(n) for _ in range(8)]
+        calls = {
+            "access_probe": lambda: ops.access_probe_op(
+                *cols[:4], i64(B), i64(), assoc=ASSOC, history_len=CAPACITY,
+                meta=tuple(cols[4:7]), ts=i64(B), experts=("lru", "lfu")),
+            "hit_metadata_update": lambda: ops.hit_metadata_update_op_(
+                cols[0], cols[1], f32(n, 4), i64(B), i64(B), i64(B), i64(B)),
+            "ranked_eviction": lambda: ops.ranked_eviction_draw_op(
+                *cols[:4], i64(LANES, 2), f32(LANES, 2), flag, i64(B), i64(B),
+                window=W, k=k, experts=("lru", "lfu")),
+            "drop_scatter": lambda: ops.drop_scatter_groups_op_((
+                (i64(B), (cols[0],), (i64(B),)),
+                (i64(B), tuple(cols[:8]), tuple(i64(B) for _ in range(8)),
+                 flag),
+                (i64(B * k), (cols[1],), (0,)))),
+            "sampled_eviction": lambda: ops.sampled_eviction_op(
+                *(f32(n + W) for _ in range(4)), i64(B), i64(B), 1.0,
+                window=W, k=k),
+            "bucket_lookup": lambda: ops.bucket_lookup_op(
+                cols[0], cols[1], i64(B), assoc=ASSOC),
+            "metadata_update": lambda: ops.metadata_update_op(
+                f32(n), f32(n), i64(B), f32(B), 1.0),
+        }
+        for tag, (T, H, hkv, D) in (("yi-9b 32k", (32768, 32, 4, 128)),
+                                    ("yi-9b 4k", (4096, 32, 4, 128)),
+                                    ("gemma-2b 4k", (4096, 8, 1, 256))):
+            q = torch.empty(1, T, H, D, dtype=torch.bfloat16, device=device)
+            kv = repeat_kv(torch.empty(1, T, hkv, D, dtype=torch.bfloat16,
+                                       device=device), H // hkv)
+            calls[f"flash_attention {tag}"] = (
+                lambda q=q, kv=kv: ops.flash_attention_op(q, kv, kv))
+        for name, fn in calls.items():
+            with OpCounter() as c:
+                fn()
+            out[name] = max(c.flops / rl.PEAK_FLOPS,
+                            c.bytes / rl.HBM_BW) * 1e6
+    return out
+
+
+def mesh_prefill(dev, card: str, arch: str, mesh) -> dict:
+    """17b (and 17c's prefill at gemma-2b): the prefill forward at B = 1,
+    T = ROOF_T with DTensor params on the one-rank mesh, under the op
+    counter: the counted FLOPs of each flash call against PERF.md's
+    hand-worked bound; the forward's and one flash call's measured times
+    against their roofline bounds; the flash kernel's launches under
+    DTensor; the hidden states against the same forward without a mesh,
+    bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.models import forward
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import active_param_count, build_param_specs
+    cfg, params = arch_params(dev, arch)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    inp = prefill_input(dev, cfg, ROOF_T, g)
+    with torch.no_grad():
+        want = forward(params, cfg, **inp)
+        fwd_ms = ms_events(lambda: forward(params, cfg, **inp))
+        specs = build_param_specs(cfg, model_shards=1)
+        with sh.use_mesh(mesh):
+            dp = sh.distribute_tree(params, specs, mesh)
+            din = {k: sh.distribute(v, sh.P(*([None] * v.dim())), mesh)
+                   for k, v in inp.items()}
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            with OpCounter() as c:
+                got = forward(dp, cfg, **din)
+            torch.cuda.synchronize()
+            launches = ops.launches()["flash_attention"]
+            got = got.full_tensor()
+    if launches != flash_layers(cfg):
+        raise AssertionError(f"phase 17 {arch}: the flash kernel launched "
+                             f"{launches} times under DTensor, not "
+                             f"{flash_layers(cfg)}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 17 {arch}: the mesh prefill differs "
+                             "from the plain one: max |d| "
+                             f"{(got.float() - want.float()).abs().max():.3g}")
+    calls, flops, _ = c.by_op["ditto.flash_attention.default"]
+    flash_us = flops / calls / rl.PEAK_FLOPS * 1e6
+    if abs(flash_us / ROOF_FLASH_US[arch] - 1) > 0.005:
+        raise AssertionError(f"phase 17 {arch}: the counter's flash bound "
+                             f"{flash_us:.2f} us is not PERF.md's "
+                             f"{ROOF_FLASH_US[arch]} us")
+    roof = rl.analyze(c.report(), 1,
+                      2.0 * active_param_count(cfg) * ROOF_T)
+    bound_ms = roof.step_time * 1e3
+    from repro_torch.models.attention import repeat_kv
+    q = torch.randn(1, ROOF_T, cfg.n_heads, cfg.hd, device=dev,
+                    dtype=torch.bfloat16)
+    kv = repeat_kv(torch.randn(1, ROOF_T, cfg.n_kv_heads, cfg.hd, device=dev,
+                               dtype=torch.bfloat16),
+                   cfg.n_heads // cfg.n_kv_heads)
+    flash_ms = time_ms(lambda: ops.flash_attention_op(q, kv, kv))
+    for what, ms, b in (("forward", fwd_ms, bound_ms),
+                        ("flash call", flash_ms, flash_us / 1e3)):
+        if ms < ROOF_FLOOR * b:
+            raise AssertionError(f"phase 17 {arch}: the {what} took {ms:.4f}"
+                                 f" ms, under {ROOF_FLOOR} of its roofline "
+                                 f"bound {b:.4f} ms: the counter missed work")
+    out = dict(fwd_ms=fwd_ms, bound_ms=bound_ms, bottleneck=roof.bottleneck,
+               flops=roof.flops_per_device,
+               fused_bytes=roof.fused_bytes_per_device,
+               bytes=roof.bytes_per_device, flash_ms=flash_ms,
+               flash_bound_ms=flash_us / 1e3, flash_launches=launches,
+               mfu_bound=roof.mfu_bound)
+    log(f"[{card}] phase 17b {arch} prefill B=1 T={ROOF_T} on the one-rank "
+        f"mesh: forward {fwd_ms:.3f} ms against a roofline bound of "
+        f"{bound_ms:.3f} ms ({roof.bottleneck}: {roof.flops_per_device:.4g}"
+        f" FLOPs, {roof.fused_bytes_per_device:.4g} fused bytes, "
+        f"{roof.bytes_per_device:.4g} op bytes), {bound_ms / fwd_ms:.3f} of "
+        f"it; one flash call {flash_ms * 1e3:.1f} us against the counter's "
+        f"{flash_us:.2f} us (PERF.md {ROOF_FLASH_US[arch]}); {launches} "
+        "flash launches under DTensor; hidden states bit-equal to the "
+        "plain forward")
+    del params, dp, q, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train(dev, card: str, mesh) -> dict:
+    """17c: one smollm-135m train step at phase 14's config with fewer
+    microbatches, with DTensor params and the ZeRO-1 specs live on the
+    one-rank mesh, against the same step without a mesh: params,
+    optimizer state and loss bit for bit."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.train import adamw_config, synthetic_batches
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import build_param_specs
+    from repro_torch.train import init_opt, make_train_step, zero_specs
+    from repro_torch.train.optimizer import tree_leaves
+    cfg, params = arch_params(dev, TRAIN["arch"])
+    seq, B = SHAPES["train_4k"].seq_len, MESH_TRAIN["batch"]
+    ocfg = adamw_config(TRAIN["lr"], TRAIN["steps"])
+    batch = synthetic_batches(cfg, B, seq, seed=SEED, device=dev)(0)
+    kw = dict(n_microbatches=MESH_TRAIN["microbatches"],
+              remat=TRAIN["remat"])
+    t0 = time.perf_counter()
+    want = make_train_step(cfg, ocfg, **kw)(params, init_opt(params), batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    specs = build_param_specs(cfg, model_shards=1)
+    zspecs = zero_specs(specs, params, mesh)
+    step = make_train_step(cfg, ocfg, param_specs=specs, zspecs=zspecs, **kw)
+    with sh.use_mesh(mesh):
+        dp = sh.distribute_tree(params, specs, mesh)
+        db = {k: sh.distribute(v, sh.P("dp", None), mesh)
+              for k, v in batch.items()}
+        t0 = time.perf_counter()
+        got = step(dp, init_opt(dp, zspecs), db)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    pairs = [("loss", got[2], want[2]), ("opt.step", got[1].step,
+                                          want[1].step)]
+    for part, i in (("params", 0), ("master", 1), ("m", 2), ("v", 3)):
+        g_t = got[0] if i == 0 else got[1][i]
+        w_t = want[0] if i == 0 else want[1][i]
+        pairs += [(part, a, b) for a, b in zip(tree_leaves(g_t),
+                                               tree_leaves(w_t))]
+    bad = [(n, (full(a).float() - b.float()).abs().max().item())
+           for n, a, b in pairs if not torch.equal(full(a), b)]
+    if bad:
+        raise AssertionError(f"phase 17c: the mesh train step differs from "
+                             f"the plain one at {len(bad)} of {len(pairs)} "
+                             f"leaves, e.g. {bad[:3]}")
+    log(f"[{card}] phase 17c: {cfg.name} train step (batch {B}, T {seq}, "
+        f"{kw['n_microbatches']} microbatches, remat {kw['remat']}) with "
+        f"DTensor params and ZeRO-1 specs on the one-rank mesh: {mesh_s:.2f} s"
+        f" (plain {plain_s:.2f} s); loss, params and optimizer state "
+        f"({len(pairs)} leaves) bit-equal to the plain step")
+    del params, dp, want, got
+    torch.cuda.empty_cache()
+    return dict(mesh_s=mesh_s, plain_s=plain_s, leaves=len(pairs))
+
+
+def run_mesh(dev, card: str) -> dict:
+    """Phase 17: (a) the fake-rank dry run of MESH_CELLS on both
+    production meshes over fake CUDA tensors (any ``failed`` cell fails);
+    (b) the roofline against the card at ROOF_ARCHS (``mesh_prefill``)
+    with the card's achieved rates; (c) the mesh path on the one-rank
+    mesh (``mesh_train``, and (b)'s gemma-2b prefill under DTensor); (d)
+    the graph audit over CUDA tensors (only the mirrored dead outputs);
+    (e) the lint of the shipped tree (no finding)."""
+    import torch
+    from repro_torch.analysis import astlint, audit
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import roofline as rl
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    t0 = time.perf_counter()
+    try:
+        recs = dryrun.run_cells(MESH_CELLS, ("single", "multi"),
+                                device_type="cuda", save=False, log=log)
+    finally:
+        M.teardown()
+    failed = [r for r in recs if r["status"] == "failed"]
+    if failed:
+        raise AssertionError(f"phase 17a: {len(failed)} dry-run cells "
+                             f"failed: {[r['error'] for r in failed]}")
+    out["dryrun"] = [{k: r.get(k) for k in (
+        "arch", "shape", "mesh", "status", "run_s", "peak_hbm_per_dev",
+        "flops_per_dev", "bottleneck", "kernel_calls")} for r in recs]
+    log(f"phase 17a: {sum(r['status'] == 'ok' for r in recs)} cells ok, "
+        f"{sum(r['status'] == 'skipped' for r in recs)} skipped, over fake "
+        f"CUDA tensors, in {time.perf_counter() - t0:.1f} s")
+
+    out["counter_bounds_us"] = b = counter_bounds()
+    log("phase 17b: the op counter's bound of one call of each kernel at "
+        "phase 2's shapes (FLOPs at the bf16 peak, or every operand and "
+        "result's bytes at HBM's rate), us: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in b.items()))
+    out["rates"] = r = card_rates(dev)
+    log(f"[{card}] phase 17b: bf16 matmul {r['matmul_tflops']:.1f} TFLOP/s "
+        f"(spec sheet {r['spec_tflops']:.0f}), copy {r['copy_tb_s']:.3f} "
+        f"TB/s (spec sheet {r['spec_tb_s']:.2f}); roofline constants "
+        f"{rl.CARD}")
+    mesh = M.make_card_mesh(dev.index or 0)
+    try:
+        out["prefill"] = {a: mesh_prefill(dev, card, a, mesh)
+                          for a in ROOF_ARCHS}
+        out["train"] = mesh_train(dev, card, mesh)
+    finally:
+        M.teardown()
+
+    t0 = time.perf_counter()
+    found = audit.audit_entry_points(device="cuda")
+    if not audit.mirrored(found):
+        extra = [str(f) for f in found if not audit.mirrored([f])]
+        raise AssertionError(f"phase 17d: the audit found {extra}")
+    out["audit"] = dict(mirrored=len(found), s=time.perf_counter() - t0)
+    log(f"phase 17d: the graph audit over CUDA tensors: {len(found)} "
+        "findings, all the mirrored dead outputs of run_trace_grouped, in "
+        f"{out['audit']['s']:.1f} s")
+    lint = astlint.lint_paths([SRC / "repro_torch"])
+    if lint:
+        raise AssertionError(f"phase 17e: lint findings: "
+                             f"{[str(f) for f in lint]}")
+    log("phase 17e: the lint of src/repro_torch: 0 findings")
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=6_000_000)
@@ -4115,6 +4540,11 @@ def main() -> int:
                          "alone) of phases 3, 9 and 10 (phase 11: fused "
                          "DM steps), one yi-9b prefill and 8 decode steps, "
                          "and one phase-14 train step")
+    ap.add_argument("--dm-only", default=None, const="", nargs="?",
+                    metavar="TAG",
+                    help="only run phase 11's fused run cold and warm with "
+                         "host and device timing, its lines prefixed with "
+                         "TAG (it runs on an older checkout's src/ too)")
     ap.add_argument("--step-only", action="store_true",
                     help="only plan phase 3's trace, count one eager step's "
                          "operators per backend and, with --profile, trace "
@@ -4144,6 +4574,9 @@ def main() -> int:
     runtime.lib()
     log(f"built {len(runtime.sources())} CUDA sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    if a.dm_only is not None:
+        dm_cold_warm(dev, card, a.dm_only and a.dm_only + " ")
+        return 0
     if a.step_only:
         from repro_torch.core import CacheConfig
         k2, w2, T, gp, _ = plan_trace(a.requests, 0)
@@ -4193,6 +4626,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     e2e["examples"], e2e["oracles"] = run_examples(
         card, lambda: run_oracles(dev, card))
+    torch.cuda.empty_cache()
+    e2e["mesh"] = run_mesh(dev, card)
 
     replaces = {
         "access_probe": "src/repro/kernels/bucket_lookup.py:171",

@@ -1,12 +1,15 @@
 """Arch and shape registry, as in ``repro/configs/registry.py``: all ten
-archs of the JAX package.  Its ``input_specs`` and ``cell_supported``
-are dry-run and TPU tooling and have no counterpart here.
+archs of the JAX package, ``cell_supported`` (which cells the dry run
+skips) and ``input_specs`` (each cell's model inputs as stand-ins with
+no values, in the JAX package's shapes and dtypes).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.configs.shapes import SHAPES, ShapeConfig
 from repro_torch.models.model import ModelConfig
@@ -50,3 +53,33 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         n_experts=8 if cfg.n_experts else 0, top_k=2 if cfg.top_k else 0,
         attn_window=32 if cfg.attn_window else 0,
     )
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k only runs on sub-quadratic archs (see DESIGN.md §4)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 512k dense-KV decode is skipped"
+    return True, ""
+
+
+def input_specs(arch, shape_name, *, dtype=torch.bfloat16,
+                device="meta") -> dict:
+    """Stand-ins with no values for every model input of this cell (an
+    arch and a shape by name, or their configs), in the JAX package's
+    shapes and dtypes: meta tensors, or fake ones under a
+    ``FakeTensorMode``.
+
+    train/prefill: full-sequence inputs. decode: one new token per sequence
+    (the KV/recurrent-state cache is ``serve.decode.abstract_cache``)."""
+    cfg = arch if isinstance(arch, ModelConfig) else get_arch(arch)
+    shape = (shape_name if isinstance(shape_name, ShapeConfig)
+             else get_shape(shape_name))
+    b, s = shape.global_batch, shape.seq_len
+    t = 1 if shape.kind == "decode" else s
+    empty = lambda shp, dt: torch.empty(shp, dtype=dt, device=device)
+    i32 = torch.int32
+    out = ({"tokens": empty((b, t), i32)} if cfg.uses_tokens
+           else {"embeds": empty((b, t, cfg.d_model), dtype)})
+    if shape.kind == "train":
+        out["labels"] = empty((b, s), i32)
+    return out

@@ -60,6 +60,7 @@ Port notes:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Tuple
 
@@ -213,6 +214,7 @@ def _run_edges(idx: torch.Tensor, last: bool = False) -> torch.Tensor:
     order, of each distinct value of ``idx`` (a stable sort of the B
     entries, on 32-bit keys: slots and buckets fit, and the radix sort
     takes half the passes; no scratch column the size of the table)."""
+    # A stable sort of the B entries, not the table.  dittolint: disable=DL003
     s, order = torch.sort(idx.to(torch.int32), stable=True)
     edge = torch.ones_like(s, dtype=torch.bool)
     if last:
@@ -687,12 +689,15 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                                      slot_hit, ts_req, emit_slot, emit_delta)
         write = kops.drop_scatter_groups_op_
     else:
+        # The reference backend's own plain writes, as the JAX package's
+        # reference backend runs XLA's.  dittolint: disable=DL005
         kref.drop_scatter_ref(upd_idx, (state.last_ts, state.ext),
                               (hit_last, hit_ext))
         # The FC-flush FAA: a no-op emit adds 0 to slot 0; then the u32
         # wrap at the slots it touched.
         state.freq.index_add_(0, torch.clamp(emit_slot, min=0),
                               torch.where(emit_slot >= 0, emit_delta, 0))
+        # The reference backend's plain write.  dittolint: disable=DL005
         kref.drop_scatter_ref(emit_slot, (state.freq,),
                               (state.freq[torch.clamp(emit_slot, min=0)]
                                & M32,))
@@ -731,6 +736,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                            torch.where(ev_winner, victims // A,
                                        cfg.n_buckets)])
         t_ver = state.bucket_ver[torch.clamp(t_idx, max=cfg.n_buckets - 1)]
+        # The L0 bump is plain on both backends.  dittolint: disable=DL005
         kref.drop_scatter_ref(t_idx, (state.bucket_ver,), ((t_ver + 1) & M32,))
         untouched = state.bucket_ver[bucket] == ver0_b
         fill_ok = hit & ~is_write & untouched                 # [B]
@@ -814,6 +820,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
     if shadow is None:
         gets, sets, hits, misses = n_op - n_set, n_set, n_hit, n_miss
         hit_bytes, miss_bytes = hit_blocks * 64, miss_blocks * 64
+        mirrors = {}
     else:
         # Mirrors move the RDMA counters above but are replication
         # traffic, not offered load: the client-visible counters skip
@@ -825,7 +832,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
                               (miss & ~sh).sum())
         hit_bytes = torch.where(hit & ~sh, old_sz, 0).sum() * 64
         miss_bytes = torch.where(miss & ~sh, obj_size, 0).sum() * 64
-        stats = stats_add(stats, replica_writes=sh.sum())
+        mirrors = dict(replica_writes=sh.sum())
     if l0:
         # L0 hits are client-visible gets and hits that move no RDMA
         # counter; they rejoin the caller's result.
@@ -844,7 +851,7 @@ def access_group_(cfg: CacheConfig, state: CacheState, clients: ClientState,
         hits=hits, misses=misses, regrets=regret.sum(),
         evictions=n_evict, bucket_evictions=fallback_obj.sum(),
         insert_drops=dropped.sum(), fc_hits=n_fc_hit, fc_flushes=n_faa,
-        weight_syncs=n_sync)
+        weight_syncs=n_sync, **mirrors)
 
     if cfg.sanitize:
         from repro_torch.analysis import sanitize as san
@@ -970,6 +977,20 @@ def _captured_step(step, key, carry, xs) -> _Captured:
     return _GRAPHS[k]
 
 
+_EAGER = []
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """``_scan`` runs its steps as a Python loop on every device, with no
+    CUDA graph, while this is entered."""
+    _EAGER.append(True)
+    try:
+        yield
+    finally:
+        _EAGER.pop()
+
+
 def _scan(step, carry, xs, key):
     """``lax.scan`` of the JAX package: ``carry, y = step(carry, x)`` for
     each x along the leading axis of the tensors ``xs``; returns the last
@@ -986,11 +1007,14 @@ def _scan(step, carry, xs, key):
 
     ``step`` may write its carry in place (``access_group_``): on the CPU
     the loop runs on one copy of the caller's carry, made before it, and
-    on the card on the graph's own; no caller's tensor is written."""
+    on the card on the graph's own; no caller's tensor is written.
+
+    Inside :func:`eager_steps` the card runs the loop too, each step's
+    operators launched one by one (the graph audit traces them)."""
     n = xs[0].shape[0]
     if n == 0:
         return carry, None
-    if xs[0].device.type != "cuda":
+    if xs[0].device.type != "cuda" or _EAGER:
         carry = _rebuild(carry, [t.clone() for t in _leaves(carry)])
         ys = []
         for i in range(n):

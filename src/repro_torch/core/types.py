@@ -322,7 +322,14 @@ def init_stats(device=None) -> OpStats:
 
 
 def stats_add(a: OpStats, **kw) -> OpStats:
-    return a._replace(**{k: getattr(a, k) + v for k, v in kw.items()})
+    """The counters ``kw`` names, each plus its value (a tensor, or a
+    number taken as a counter of that value), in one ``_foreach_add``
+    (one launch on the card, not one a counter)."""
+    old = [getattr(a, k) for k in kw]
+    new = torch._foreach_add(old, [
+        v if isinstance(v, torch.Tensor) else torch.full_like(c, v)
+        for c, v in zip(old, kw.values())])
+    return a._replace(**dict(zip(kw, new)))
 
 
 def stats_sum(stats: OpStats) -> OpStats:

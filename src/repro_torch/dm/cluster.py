@@ -165,6 +165,7 @@ class Cluster(NamedTuple):
         rep = np.full((GB,), S, np.int32)
         n_hot = int(min(n_hot, GB))
         if n_hot > 0 and routed.sum() >= 2:
+            # The hottest loads first.  dittolint: disable=DL003
             hot = np.argsort(-loads, kind="stable")[:n_hot]
             hot = hot[loads[hot] > 0]
             prim = (hot // lb).astype(np.int32)

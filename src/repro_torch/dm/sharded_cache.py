@@ -235,6 +235,8 @@ def _route(n_shards: int, lanes: int, q: int, global_buckets: int, keys,
               | (torch.cat([size, size], dim=-1) << 1)
               | torch.cat([write, write], dim=-1).to(I64))
     ar = torch.arange(L2, device=keys.device)
+    # Packing by owner is a sort by nature (argmin-peel would cost
+    # O(lanes) peels), as in the JAX package.  dittolint: disable=DL003
     order = torch.argsort(owner_c * (L2 + 1) + ar, dim=-1, stable=True)
     so = torch.gather(owner_c, -1, order)
     first = torch.ones_like(so, dtype=torch.bool)

@@ -9,10 +9,14 @@ entry point reaches (``sampled_eviction_op``, ``bucket_lookup_op``,
 A trailing underscore marks an op that updates its arguments in place.
 
 Each wrapper checks its arguments (dtype, device, shape, contiguity) and
-dispatches on the device of the tensors it is given: CPU tensors go to
-the plain version in ``kernels/ref.py``; CUDA tensors go to the
+calls its operator (``kernels/library.py``, ``torch.ops.ditto.*``),
+which dispatches on the device of the tensors it is given: CPU tensors
+go to the plain version in ``kernels/ref.py``; CUDA tensors go to the
 hand-written kernel, which is built at first use, and any failure to
-build or launch raises.  Every kernel launch adds one to the kernel's
+build or launch raises; a tensor on any other device raises in the
+dispatcher.  Fake and meta tensors take the operator's fake
+implementation (shapes alone), so tracing tools see each kernel as one
+operator.  Every kernel launch adds one to the kernel's
 count on the device (``kernels/runtime.py``), also when the launch is
 replayed from a CUDA graph (``core/cache.py::_scan``); :func:`launches`
 reads the counts, so a run can show that its main path went through the
@@ -26,31 +30,35 @@ import numbers
 import numpy as np
 import torch
 
+from repro_torch.kernels import library as lib
 from repro_torch.kernels import ref
-from repro_torch.kernels.bucket_lookup import access_probe, bucket_lookup
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.metadata_update import (hit_metadata_update_,
-                                                 metadata_update)
 from repro_torch.kernels.runtime import launch_counts as launches
 from repro_torch.kernels.runtime import reset_counts as reset_launches
 from repro_torch.kernels.sampled_eviction import (KERNEL_EXPERTS, MAX_EXPERTS,
-                                                  ranked_eviction,
-                                                  ranked_eviction_draw,
-                                                  sampled_eviction)
-from repro_torch.kernels.scatter import MAX_COLS, MAX_GROUPS, drop_scatter
+                                                  packed_codes)
+from repro_torch.kernels.scatter import MAX_COLS, MAX_GROUPS
 
 __all__ = ["access_probe_op", "hit_metadata_update_op",
            "hit_metadata_update_op_", "ranked_eviction_op",
            "ranked_eviction_draw_op", "drop_scatter_op_",
            "drop_scatter_groups_op_", "flash_attention_op",
            "sampled_eviction_op", "bucket_lookup_op", "metadata_update_op",
-           "KERNEL_EXPERTS", "launches", "reset_launches"]
+           "metadata_update_op_", "KERNEL_EXPERTS", "launches",
+           "reset_launches"]
 
 I64, F32, BOOL = torch.int64, torch.float32, torch.bool
 
 
+def _device(op: str, device) -> None:
+    """Only CPU (the plain versions) and CUDA (the kernels) tensors, real
+    or fake, reach an operator: a meta tensor raises here."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: no kernel for device {device}")
+
+
 def _check(op: str, device, **tensors) -> None:
     """tensors: name -> (tensor, dtype, shape); a None dim matches any."""
+    _device(op, device)
     for name, (t, dtype, shape) in tensors.items():
         if t.device != device:
             raise ValueError(f"{op}: {name} is on {t.device}, not {device}")
@@ -64,16 +72,17 @@ def _check(op: str, device, **tensors) -> None:
             raise ValueError(f"{op}: {name} must be contiguous")
 
 
-def _clock(op: str, clock, device):
-    """A scalar clock: a 0-d f32 tensor on ``device`` as it is, a number
-    rounded to f32 (as ``jnp.asarray(clock, jnp.float32)`` rounds it)."""
+def _clock(op: str, clock, device) -> tuple:
+    """A scalar clock as the ops take it, (tensor, number): a 0-d f32
+    tensor on ``device`` as it is, or a number rounded to f32 (as
+    ``jnp.asarray(clock, jnp.float32)`` rounds it)."""
     if isinstance(clock, torch.Tensor):
         _check(op, device, clock=(clock, F32, ()))
-        return clock
+        return clock, 0.0
     if not isinstance(clock, numbers.Real):
         raise TypeError(f"{op}: clock must be a number or a 0-d tensor, got "
                         f"{type(clock).__name__}")
-    return float(np.float32(clock))
+    return None, float(np.float32(clock))
 
 
 def _experts(op: str, experts) -> tuple:
@@ -101,15 +110,6 @@ def _window(op: str, window: int, k: int, n: int) -> None:
         raise ValueError(f"{op}: k={k} must be in [1, window={window}]")
 
 
-def _dispatch(op: str, device, kernel, plain, *args, **kw):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if device.type == "cuda":
-        return kernel(*args, **kw)
-    if device.type == "cpu":
-        return plain(*args, **kw)
-    raise ValueError(f"{op}: no kernel for device {device}")
-
-
 def access_probe_op(table_key, table_size, table_hash, table_ptr, keys,
                     hist_ctr, *, assoc: int, history_len: int, meta=None,
                     ts=None, experts=None):
@@ -129,7 +129,6 @@ def access_probe_op(table_key, table_size, table_hash, table_ptr, keys,
                 table_hash=(table_hash, I64, (n,)),
                 table_ptr=(table_ptr, I64, (n,)), keys=(keys, I64, (B,)),
                 hist_ctr=(hist_ctr, I64, ()))
-    kw = dict(assoc=assoc, history_len=history_len)
     if (meta is None) != (ts is None) or (meta is None) != (experts is None):
         raise ValueError("access_probe: meta, ts and experts go together")
     if meta is not None:
@@ -138,12 +137,14 @@ def access_probe_op(table_key, table_size, table_hash, table_ptr, keys,
                              "freq) columns")
         spec.update({f"meta{i}": (m, I64, (n,)) for i, m in enumerate(meta)},
                     ts=(ts, I64, (B,)))
-        kw.update(meta=tuple(meta), ts=ts,
-                  experts=_experts("access_probe", experts))
+        experts = _experts("access_probe", experts)
     _check("access_probe", dev, **spec)
     args = (table_key, table_size, table_hash, table_ptr, keys, hist_ctr)
-    return _dispatch("access_probe", dev, access_probe, ref.access_probe_ref,
-                     *args, **kw)
+    if meta is None:
+        return lib.access_probe_op(*args, assoc, history_len)
+    out = lib.access_probe_facts_op(*args, *meta, ts, assoc, history_len,
+                                    packed_codes(experts), len(experts))
+    return tuple(out[:4]) + (ref.ProbeFacts(*out[4:]),)
 
 
 def hit_metadata_update_op_(freq, last_ts, ext, hit_slots, hit_ts,
@@ -157,9 +158,8 @@ def hit_metadata_update_op_(freq, last_ts, ext, hit_slots, hit_ts,
            hit_slots=(hit_slots, I64, (bh,)), hit_ts=(hit_ts, I64, (bh,)),
            emit_slots=(emit_slots, I64, (be,)),
            emit_deltas=(emit_deltas, I64, (be,)))
-    args = (freq, last_ts, ext, hit_slots, hit_ts, emit_slots, emit_deltas)
-    _dispatch("hit_metadata_update", dev, hit_metadata_update_,
-              ref.hit_metadata_update_ref_, *args)
+    lib.hit_metadata_update_op_(freq, last_ts, ext, hit_slots, hit_ts,
+                                emit_slots, emit_deltas)
 
 
 def hit_metadata_update_op(freq, last_ts, ext, hit_slots, hit_ts, emit_slots,
@@ -244,8 +244,7 @@ def drop_scatter_groups_op_(groups) -> None:
     groups = tuple(_scatter_group(g, dev) for g in groups)
     if sum(len(g[1]) for g in groups) > MAX_COLS:
         raise ValueError(f"drop_scatter: more than {MAX_COLS} columns in all")
-    _dispatch("drop_scatter", dev, drop_scatter, ref.drop_scatter_groups_ref,
-              groups)
+    lib.drop_scatter_op_(*lib.pack_groups(groups))
 
 
 def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
@@ -271,11 +270,9 @@ def ranked_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
     if tenant is not None:
         cols.update(tenant=(tenant, I64, (n,)), tfilt=(tfilt, I64, (B,)))
     _check("ranked_eviction", dev, **cols)
-    args = (size, insert_ts, last_ts, freq, offsets, e_choice, must_evict,
-            quota, ts)
-    return _dispatch("ranked_eviction", dev, ranked_eviction,
-                     ref.ranked_eviction_ref, *args, window=window, k=k,
-                     experts=experts, tenant=tenant, tfilt=tfilt)
+    return lib.ranked_eviction_op(
+        size, insert_ts, last_ts, freq, offsets, e_choice, must_evict, quota,
+        ts, tenant, tfilt, window, k, packed_codes(experts), len(experts))
 
 
 def ranked_eviction_draw_op(size, insert_ts, last_ts, freq, rng, cdf,
@@ -319,11 +316,9 @@ def ranked_eviction_draw_op(size, insert_ts, last_ts, freq, rng, cdf,
     if tenant is not None:
         spec.update(tenant=(tenant, I64, (n,)), tfilt=(tfilt, I64, (B,)))
     _check("ranked_eviction", dev, **spec)
-    args = (size, insert_ts, last_ts, freq, rng, cdf, must_evict, quota, ts)
-    return _dispatch("ranked_eviction", dev, ranked_eviction_draw,
-                     ref.ranked_eviction_draw_ref, *args, window=window, k=k,
-                     experts=experts, tenant=tenant, tfilt=tfilt,
-                     op_tenant=op_tenant)
+    return lib.ranked_eviction_draw_op(
+        size, insert_ts, last_ts, freq, rng, cdf, must_evict, quota, ts,
+        tenant, tfilt, op_tenant, window, k, packed_codes(experts), E)
 
 
 def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
@@ -347,14 +342,13 @@ def sampled_eviction_op(size, insert_ts, last_ts, freq, offsets, e_choice,
            insert_ts=(insert_ts, F32, (n,)), last_ts=(last_ts, F32, (n,)),
            freq=(freq, F32, (n,)), offsets=(offsets, I64, (B,)),
            e_choice=(e_choice, I64, (B,)))
-    args = (size, insert_ts, last_ts, freq, offsets, e_choice,
-            _clock("sampled_eviction", clock, dev))
+    clock_t, clock = _clock("sampled_eviction", clock, dev)
     if not 0 < k <= window:
         raise ValueError(f"sampled_eviction: k={k} must be in [1, window="
                          f"{window}]")
-    return _dispatch("sampled_eviction", dev, sampled_eviction,
-                     ref.sampled_eviction_ref, *args, window=window, k=k,
-                     experts=experts)
+    return lib.sampled_eviction_op(size, insert_ts, last_ts, freq, offsets,
+                                   e_choice, clock_t, clock, window, k,
+                                   packed_codes(experts), len(experts))
 
 
 def bucket_lookup_op(table_key, table_size, keys, *, assoc: int = 8):
@@ -368,9 +362,7 @@ def bucket_lookup_op(table_key, table_size, keys, *, assoc: int = 8):
         raise ValueError(f"bucket_lookup: assoc={assoc} for {n} slots")
     _check("bucket_lookup", dev, table_key=(table_key, I64, (n,)),
            table_size=(table_size, I64, (n,)), keys=(keys, I64, (B,)))
-    return _dispatch("bucket_lookup", dev, bucket_lookup,
-                     ref.bucket_lookup_ref, table_key, table_size, keys,
-                     assoc=assoc)
+    return lib.bucket_lookup_op(table_key, table_size, keys, assoc)
 
 
 def metadata_update_op(freq, last_ts, slots, deltas, clock):
@@ -382,15 +374,25 @@ def metadata_update_op(freq, last_ts, slots, deltas, clock):
     and its C % 512 == 0, are gone.  The JAX kernel sums a slot's deltas
     before it adds them, so on non-integer deltas the two may differ in
     the last bits."""
+    return lib.metadata_update_op(*_metadata_args(freq, last_ts, slots,
+                                                  deltas, clock))
+
+
+def metadata_update_op_(freq, last_ts, slots, deltas, clock) -> None:
+    """:func:`metadata_update_op` in place in ``freq`` and ``last_ts``
+    (on the card no copy of the columns)."""
+    lib.metadata_update_op_(*_metadata_args(freq, last_ts, slots, deltas,
+                                            clock))
+
+
+def _metadata_args(freq, last_ts, slots, deltas, clock) -> tuple:
     dev = freq.device
     n, B = freq.shape[0], slots.shape[0]
     _check("metadata_update", dev, freq=(freq, F32, (n,)),
            last_ts=(last_ts, F32, (n,)), slots=(slots, I64, (B,)),
            deltas=(deltas, F32, (B,)))
-    args = (freq, last_ts, slots, deltas,
-            _clock("metadata_update", clock, dev))
-    return _dispatch("metadata_update", dev, metadata_update,
-                     ref.metadata_update_ref, *args)
+    return (freq, last_ts, slots, deltas,
+            *_clock("metadata_update", clock, dev))
 
 
 def flash_attention_op(q, k, v):
@@ -432,5 +434,5 @@ def flash_attention_op(q, k, v):
                         f"{q.dtype}")
     if T == 0:
         raise ValueError("flash_attention: empty sequence")
-    return _dispatch("flash_attention", dev, flash_attention,
-                     ref.flash_attention_ref, q, k, v)
+    _device("flash_attention", dev)
+    return lib.flash_attention_op(q, k, v)

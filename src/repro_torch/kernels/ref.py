@@ -233,6 +233,8 @@ def metadata_update_ref(freq, last_ts, slots, deltas, clock):
     n = freq.shape[0]
     clock = torch.as_tensor(clock, dtype=torch.float32, device=freq.device)
     pos = torch.nonzero((slots >= 0) & (slots < n))[:, 0]
+    # The plain version's own order; the kernel combines in place.
+    # dittolint: disable=DL003
     s, order = torch.sort(slots[pos], stable=True)
     d = deltas[pos][order]
     # Rank of each entry among its slot's entries, in batch order.
@@ -322,6 +324,8 @@ def ranked_eviction_ref(size, insert_ts, last_ts, freq, offsets, e_choice,
     pr_sel = torch.gather(pr, 2, torch.clamp(e_choice, 0, E - 1)[:, None, None]
                           .expand(B, window, 1))[:, :, 0]
     pr_sel = torch.where(ok_choice[:, None], pr_sel, float("nan"))
+    # The plain version ranks by a sort; the kernel argmin-peels.
+    # dittolint: disable=DL003
     order = torch.argsort(pr_sel, dim=1, stable=True)
     ranked_idx = torch.gather(idx, 1, order)
     ranked_live = torch.gather(in_sample & ok_choice[:, None], 1, order)

@@ -30,6 +30,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gqa_heads
 from repro_torch.models.layers import rope
+from repro_torch.models.sharding import current_mesh, maybe_shard
 
 NEG_INF = -2.0e38
 
@@ -104,11 +105,14 @@ def attention_block(x, params, cfg, positions, *, window: int = 0,
     ``plain`` (or a window): the JAX package's plain strategies, else
     the flash op (see the module docstring).
 
-    The JAX package's sharding annotation (``maybe_shard``) has no
-    counterpart on one card."""
+    Under a mesh q is sharded on its heads (``maybe_shard``, as the JAX
+    package); where the model axis does not split the KV heads, the GQA
+    view is flattened to all H heads (a copy) so that q, k and v shard
+    alike for the flash op's sharding rule."""
     b, t, _ = x.shape
     hd = cfg.hd
-    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, hd)
+    q = maybe_shard((x @ params["wq"]).reshape(b, t, cfg.n_heads, hd),
+                    "dp", None, "model", None)
     k = (x @ params["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
     v = (x @ params["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
     q = rope(q, positions, cfg.rope_theta)
@@ -116,6 +120,10 @@ def attention_block(x, params, cfg, positions, *, window: int = 0,
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     if not (plain or window):
+        mesh = current_mesh()
+        if mesh is not None and "model" in (mesh.mesh_dim_names or ()) and (
+                cfg.n_kv_heads % mesh["model"].size()):
+            k, v = gqa_heads(k), gqa_heads(v)
         o = ops.flash_attention_op(q, k, v)
     elif t > 8192:
         o = chunked_attention(q, k, v, window=window)

@@ -16,7 +16,10 @@ params across with no transpose.
 (labels): the JAX package's ``lax.scan`` over periods is a Python loop
 over the stacked params, and its ``jax.checkpoint`` policies are
 ``torch.utils.checkpoint`` forms (see :func:`forward`).  Its sharding
-annotations (``maybe_shard``) have no counterpart on one card.
+annotations (``maybe_shard``, ``models/sharding.py``) apply under an
+active mesh and are the identity without one; :func:`build_param_specs`
+gives the params' specs and :func:`abstract_params` their stand-ins for
+the dry run (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import rglru_block
+from repro_torch.models.sharding import P, maybe_shard
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 ATTN_KINDS = ("attn", "attn_local", "attn_moe")
@@ -143,6 +147,91 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
             "w_ff_gate": (d, ff), "w_ff_up": (d, ff), "w_ff_down": (ff, d),
         }
     raise ValueError(kind)
+
+
+def _block_specs(cfg: ModelConfig, kind: str,
+                 model_shards: int) -> Dict[str, P]:
+    """One block's param specs, as the JAX package's: attention's heads
+    and the MLP's hidden dim over 'model' where they divide, the MoE
+    experts over 'model', RG-LRU's width over 'model'; the xLSTM kernels
+    replicate."""
+    def div(n):
+        return n % model_shards == 0
+    out: Dict[str, P] = {}
+    for name, shape in _block_shapes(cfg, kind).items():
+        spec = P(*([None] * len(shape)))
+        if kind in ATTN_KINDS:
+            if name in ("wq",) and div(cfg.n_heads):
+                spec = P(None, "model")
+            elif name in ("wk", "wv") and div(cfg.n_kv_heads):
+                spec = P(None, "model")
+            elif name == "wo" and div(cfg.n_heads):
+                spec = P("model", None)
+            elif name == "router":
+                spec = P(None, None)
+            elif name in ("w_gate", "w_up"):
+                spec = (P("model", None, None) if kind == "attn_moe"
+                        else (P(None, "model") if div(cfg.d_ff) else spec))
+            elif name == "w_down":
+                spec = (P("model", None, None) if kind == "attn_moe"
+                        else (P("model", None) if div(cfg.d_ff) else spec))
+        elif kind == "rglru":
+            dr = cfg.d_model
+            if name in ("w_y", "w_x", "w_a", "w_i") and div(dr):
+                spec = P(None, "model")
+            elif name in ("b_a", "b_i", "lam") and div(dr):
+                spec = P("model")
+            elif name == "conv_w" and div(dr):
+                spec = P(None, "model")
+            elif name == "w_o" and div(dr):
+                spec = P("model", None)
+            elif name in ("w_gate", "w_up") and div(cfg.d_ff):
+                spec = P(None, "model")
+            elif name == "w_down" and div(cfg.d_ff):
+                spec = P("model", None)
+        out[name] = spec
+    return out
+
+
+def build_param_specs(cfg: ModelConfig, model_shards: int = 16):
+    """The params' spec tree (``models/sharding.P`` leaves), leaf by leaf
+    the JAX package's: the tables over 'model' on the vocab where it
+    divides, each period leaf with a replicated leading period axis."""
+    vocab_ok = cfg.padded_vocab % model_shards == 0
+    emb = P("model", None) if vocab_ok else P(None, None)
+    specs: Dict[str, Any] = {"embed": emb, "final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = emb
+    specs["period"] = {
+        f"{j}_{kind}": {n: P(None, *s) for n, s in
+                        _block_specs(cfg, kind, model_shards).items()}
+        for j, kind in enumerate(cfg.block_pattern)}
+    if cfg.remainder:
+        specs["rem"] = {f"{j}_{kind}": _block_specs(cfg, kind, model_shards)
+                        for j, kind in enumerate(cfg.remainder)}
+    return specs
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16,
+                    device="meta") -> Dict[str, Any]:
+    """The params' tree with their shapes and dtype and no values: meta
+    tensors, or fake ones when called under a ``FakeTensorMode`` with a
+    real device (the dry run's stand-ins; nothing is allocated)."""
+    empty = lambda shape: torch.empty(shape, dtype=dtype, device=device)
+    pv, d = cfg.padded_vocab, cfg.d_model
+    params: Dict[str, Any] = {"embed": empty((pv, d)),
+                              "final_norm": empty((d,))}
+    if not cfg.tie_embeddings:
+        params["unembed"] = empty((pv, d))
+    params["period"] = {
+        f"{j}_{kind}": {n: empty((cfg.n_periods,) + s)
+                        for n, s in _block_shapes(cfg, kind).items()}
+        for j, kind in enumerate(cfg.block_pattern)}
+    if cfg.remainder:
+        params["rem"] = {f"{j}_{kind}": {n: empty(s) for n, s in
+                                         _block_shapes(cfg, kind).items()}
+                         for j, kind in enumerate(cfg.remainder)}
+    return params
 
 
 def _tree_shapes(cfg: ModelConfig):
@@ -359,6 +448,7 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     else:
         x = embeds.to(params["embed"].dtype)
     b, t = x.shape[:2]
+    x = maybe_shard(x, "dp", None, None)
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
 
     def period_body(xc, p):
@@ -367,7 +457,7 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
             xc = _apply_block(xc, {n: w[p] for n, w in stacked.items()},
                               cfg, kind, positions, plain=plain,
                               save_outs=remat == "save_outs")
-        return xc
+        return maybe_shard(xc, "dp", None, None)
 
     for p in range(cfg.n_periods):
         if remat == "full":

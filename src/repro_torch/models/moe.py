@@ -4,9 +4,19 @@ in ``repro/models/moe.py``.
 The JAX package runs this block outside any Pallas kernel, so the port
 runs it as plain torch: the routing of :func:`moe_route`, an index
 gather into the [E, cap, d] expert buffer, three batched expert
-products and a weighted gather back to the tokens.  Its sharding
-annotations (``maybe_shard``: the expert axis over the mesh, the
-all-to-all) have no counterpart on one card.
+products and a weighted gather back to the tokens.
+
+Under a mesh the expert buffers shard as in the JAX package
+(``maybe_shard``: the experts over the model axis, the capacity over the
+data axes), so the expert products run on each device's experts.  The
+routing (a stable sort, ``searchsorted``, an indexed write), the gather
+into the buffer and the weighted gather back have no DTensor sharding
+rules, so they run as explicit regions: the routing on every device's
+full copy of the gate logits (``sharding.replicated``); the gather of
+each device's slots of the buffer from all tokens (an all-gather of the
+tokens); the gather back from each device's slots only, as partial sums
+reduced over the mesh (a reduce-scatter over the data axes and an
+all-reduce over the model axis).
 """
 
 from __future__ import annotations
@@ -15,6 +25,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import (current_mesh, local_offsets,
+                                         maybe_shard, replicated)
 
 
 class Route(NamedTuple):
@@ -59,10 +72,12 @@ def moe_route(gate_logits: torch.Tensor, k: int,
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
     keep = pos < cap
     # XLA's drop-mode scatter discards the dropped choices (row E, out
-    # of bounds); here they are filtered out before the indexed write.
-    idx_buf = torch.full((e, cap), n, dtype=torch.int64, device=dev)
-    idx_buf[eid[keep], pos[keep]] = torch.arange(n, device=dev)[keep]
-    return Route(topv, topi, pos, keep, idx_buf)
+    # of bounds); here they all write one spare slot past the buffer,
+    # which is cut off (no shape depends on the data).
+    flat = torch.full((e * cap + 1,), n, dtype=torch.int64, device=dev)
+    flat.index_put_((torch.where(keep, eid * cap + pos, e * cap),),
+                    torch.arange(n, device=dev))
+    return Route(topv, topi, pos, keep, flat[:e * cap].reshape(e, cap))
 
 
 def moe_block(x: torch.Tensor, params, cfg, *,
@@ -74,27 +89,93 @@ def moe_block(x: torch.Tensor, params, cfg, *,
     n_tok = b * t
     xt = x.reshape(n_tok, d)
     gate_logits = (xt @ params["router"].to(xt.dtype)).float()
-    r = moe_route(gate_logits, k, capacity_factor)
-    cap = r.idx_buf.shape[1]
-
-    occupied = r.idx_buf < n_tok * k
-    tok_of_slot = torch.where(occupied, r.idx_buf // k, 0)
-    buf = torch.where(occupied[..., None],
-                      xt[tok_of_slot.reshape(-1)].reshape(e, cap, d), 0)
+    r = replicated(moe_route, gate_logits, k, capacity_factor)
+    idx_buf = maybe_shard(r.idx_buf, "model", "dp")
+    if current_mesh() is None:
+        buf = _dispatch(idx_buf, xt, k)
+    else:
+        buf = maybe_shard(_dispatch_sharded(idx_buf, xt, k),
+                          "model", "dp", None)
     # The expert FFNs: ``ecd,edf->ecf`` as batched products.
     h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(
         buf, params["w_up"])
-    out = torch.bmm(h, params["w_down"])
-
-    # Combine: each choice's expert output (zero where dropped), weighted.
-    eid = r.topi.reshape(-1)
-    slot_of = torch.where(r.keep, eid * cap + r.pos, e * cap)
-    out_flat = torch.cat([out.reshape(e * cap, d),
-                          out.new_zeros((1, d))])
-    got = out_flat[slot_of]
-    combined = torch.sum(got.reshape(n_tok, k, d)
-                         * r.topv[..., None].to(got.dtype), dim=1)
+    out = maybe_shard(torch.bmm(h, params["w_down"]), "model", "dp", None)
+    if current_mesh() is None:
+        combined = _combine(out, r.topi, r.keep, r.pos, r.topv)
+    else:
+        combined = maybe_shard(_combine_sharded(out, r), "dp", None)
     return combined.reshape(b, t, d)
+
+
+def _dispatch_sharded(idx_buf, xt, k: int):
+    """:func:`_dispatch` of each device's slots (``idx_buf``'s shard)
+    from all tokens (``xt`` gathered): the buffer with ``idx_buf``'s
+    placements on its first two dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = idx_buf.device_mesh
+    # Each device reads the tokens of its slots only: the gradient of its
+    # copy is a partial sum over the mesh dims that shard the slots.
+    x_full = xt.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if isinstance(p, Shard) else Replicate()
+                         for p in idx_buf.placements])
+    local = _dispatch(idx_buf.to_local(), x_full, k)
+    e, cap = idx_buf.shape
+    return DTensor.from_local(local, mesh, idx_buf.placements,
+                              run_check=False, shape=(e, cap, xt.shape[1]),
+                              stride=(cap * xt.shape[1], xt.shape[1], 1))
+
+
+def _combine_sharded(out, r: Route):
+    """:func:`_combine` from each device's shard of ``out`` [E, cap, d]:
+    the choices whose slot it holds, weighted and summed over the top k
+    (one choice at a time), as partial sums over the mesh (``Partial``
+    on every mesh dim that shards ``out``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = out.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    (el, cl, d), (e0, c0, _) = local_offsets(out)
+    o = out.to_local().reshape(el * cl, d)
+    o = torch.cat([o, o.new_zeros((1, d))])
+    topi, keep, pos = (x.redistribute(mesh, rep).to_local()
+                       for x in (r.topi, r.keep, r.pos))
+    pl = [Partial() if isinstance(x, Shard) else Replicate()
+          for x in out.placements]
+    # The gates' gradient: each device's choices only (a partial sum).
+    topv = r.topv.redistribute(mesh, rep).to_local(grad_placements=pl)
+    n_tok, k = topi.shape
+    pos = pos.reshape(n_tok, k)
+    keep = keep.reshape(n_tok, k)
+    acc = None
+    for j in range(k):
+        e, p = topi[:, j] - e0, pos[:, j] - c0
+        mine = keep[:, j] & (e >= 0) & (e < el) & (p >= 0) & (p < cl)
+        slot = torch.where(mine, e * cl + p, el * cl)
+        term = o[slot] * topv[:, j, None].to(o.dtype)
+        acc = term if acc is None else acc + term
+    return DTensor.from_local(acc, mesh, pl, run_check=False,
+                              shape=(n_tok, d), stride=(d, 1))
+
+
+def _dispatch(idx_buf, xt, k: int):
+    """The [E, cap, d] expert buffer: each slot's token row, zero where
+    the slot is empty."""
+    e, cap = idx_buf.shape
+    occupied = idx_buf < xt.shape[0] * k
+    tok_of_slot = torch.where(occupied, idx_buf // k, 0)
+    return torch.where(occupied[..., None],
+                       xt[tok_of_slot.reshape(-1)].reshape(e, cap, -1), 0)
+
+
+def _combine(out, topi, keep, pos, topv):
+    """Each token's choices' expert outputs (zero where dropped),
+    weighted by their gates and summed: [N, d]."""
+    e, cap, d = out.shape
+    n_tok, k = topi.shape
+    slot_of = torch.where(keep, topi.reshape(-1) * cap + pos, e * cap)
+    out_flat = torch.cat([out.reshape(e * cap, d), out.new_zeros((1, d))])
+    got = out_flat[slot_of]
+    return torch.sum(got.reshape(n_tok, k, d)
+                     * topv[..., None].to(got.dtype), dim=1)
 
 
 def moe_aux_loss(gate_logits_mean: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import softplus
+from repro_torch.models.sharding import maybe_shard
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -118,7 +119,7 @@ def rglru_block(x: torch.Tensor, params, cfg, *, conv_state=None, h0=None,
 
     x: [B, T, d_model].  Decode passes T = 1 with (conv_state, h0)."""
     y = F.gelu(x @ params["w_y"], approximate="tanh")      # [B, T, D_rnn]
-    u = x @ params["w_x"]
+    u = maybe_shard(x @ params["w_x"], "dp", None, "model")
     u, conv_state_new = causal_conv1d(u, params["conv_w"], conv_state)
     if x.shape[1] == 1 and h0 is not None:
         h, h_last = rglru_step(u[:, 0], params, h0)

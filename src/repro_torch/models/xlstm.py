@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import softplus
+from repro_torch.models.sharding import batch_local, maybe_shard
 
 
 # ----------------------------------------------------------------------
@@ -102,6 +103,7 @@ def mlstm_block(x, params, cfg, *, state=None, return_state: bool = False):
     dh = d_in // h
     xm = x @ params["w_up_x"]
     z = x @ params["w_up_z"]
+    xm = maybe_shard(xm, "dp", None, None)
     q = (xm @ params["w_q"]).reshape(b, t, h, dh)
     k = (xm @ params["w_k"]).reshape(b, t, h, dh)
     v = (xm @ params["w_v"]).reshape(b, t, h, dh)
@@ -183,9 +185,16 @@ def slstm_scan(x, params, state0=None, return_state: bool = False):
 
 
 def slstm_block(x, params, cfg, *, state=None, return_state: bool = False):
-    """sLSTM block and its gated (4/3) FFN, as in xLSTM's sLSTM block."""
-    res = slstm_scan(x, params, state0=state, return_state=return_state)
-    y, st = res if return_state else (res, None)
+    """sLSTM block and its gated (4/3) FFN, as in xLSTM's sLSTM block.
+    Under a mesh the scan runs on each device's rows
+    (``sharding.batch_local``)."""
+    def scan(x, *rest):
+        w_zifo, r_kernel, *st0 = rest[-2:] + rest[:-2]
+        return slstm_scan(x, {"w_zifo": w_zifo, "r_kernel": r_kernel},
+                          state0=tuple(st0) or None, return_state=True)
+
+    y, st = batch_local(scan, (x, *(state or ())),
+                        (params["w_zifo"], params["r_kernel"]))
     y = y @ params["w_proj"]
     g = y @ params["w_ff_gate"]
     y = (F.gelu(g, approximate="tanh") * (y @ params["w_ff_up"])

@@ -21,12 +21,17 @@ return the cache, so callers read as in the JAX package.
 
 ``_attn_decode`` is the JAX package's plain attention of one token
 against the lane's cache; it and the recurrent steps run no Pallas
-kernel there and stay plain here.  The JAX package's sequence-sharded
-flash-decode layout (``cache_specs``) has no counterpart on one card.
+kernel there and stay plain here.  :func:`cache_specs` gives the JAX
+package's layout of the caches on a mesh (the batch over the data axes,
+K/V on the heads or, where the model axis does not split them, on the
+sequence: flash-decode), and :func:`abstract_cache` their stand-ins for
+the dry run.  Under a mesh the in-place writes run on each device's
+shard (:func:`_write_rows`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -36,6 +41,8 @@ from repro_torch.models.attention import repeat_kv
 from repro_torch.models.model import ATTN_KINDS, ModelConfig
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import rglru_block
+from repro_torch.models.sharding import (P, current_mesh, local_offsets,
+                                         maybe_shard, replicated)
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 NEG_INF = -2.0e38
@@ -63,25 +70,74 @@ def _kind_cache_shape(cfg: ModelConfig, kind: str, batch: int,
     raise ValueError(kind)
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
-    """Fresh caches on ``device`` (default: the card): zeros, and the
-    sLSTM's m at -1e30."""
-    device = torch.device("cuda" if device is None else device)
-
+def _build_cache(cfg: ModelConfig, batch: int, seq_len: int, leaf,
+                 pos_dtype) -> Dict[str, Any]:
+    """The caches' tree, each tensor ``leaf(name, shape, dtype)``."""
     def caches(kind, lead=()):
-        return {n: torch.full(lead + shp, M_FILL if n == "m" else 0,
-                              dtype=dt, device=device)
-                for n, (shp, dt) in _kind_cache_shape(
-                    cfg, kind, batch, seq_len).items()}
+        return {n: leaf(n, lead + shp, dt) for n, (shp, dt) in
+                _kind_cache_shape(cfg, kind, batch, seq_len).items()}
 
-    tree: Dict[str, Any] = {
-        "pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+    tree: Dict[str, Any] = {"pos": leaf("pos", (batch,), pos_dtype)}
     tree["period"] = {f"{j}_{kind}": caches(kind, (cfg.n_periods,))
                       for j, kind in enumerate(cfg.block_pattern)}
     if cfg.remainder:
         tree["rem"] = {f"{j}_{kind}": caches(kind)
                        for j, kind in enumerate(cfg.remainder)}
     return tree
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+    """Fresh caches on ``device`` (default: the card): zeros, and the
+    sLSTM's m at -1e30."""
+    device = torch.device("cuda" if device is None else device)
+    return _build_cache(cfg, batch, seq_len, lambda n, shp, dt: torch.full(
+        shp, M_FILL if n == "m" else 0, dtype=dt, device=device),
+        torch.int64)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                   device="meta"):
+    """The caches' tree with shapes and the JAX package's dtypes (``pos``
+    int32) and no values: meta tensors, or fake ones under a
+    ``FakeTensorMode`` (the dry run's stand-ins)."""
+    return _build_cache(cfg, batch, seq_len, lambda n, shp, dt: torch.empty(
+        shp, dtype=dt, device=device), torch.int32)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                model_shards: int = 16):
+    """The spec tree matching :func:`abstract_cache`: B over dp; KV
+    sharded on heads when divisible, else on the sequence (flash-decode);
+    leaf by leaf the JAX package's."""
+    out: Dict[str, Any] = {"pos": P()}
+    out["period"] = {
+        f"{j}_{kind}": {n: _leaf(cfg, n, model_shards, stacked=True)
+                        for n in _kind_cache_shape(cfg, kind, batch, seq_len)}
+        for j, kind in enumerate(cfg.block_pattern)}
+    if cfg.remainder:
+        out["rem"] = {
+            f"{j}_{kind}": {n: _leaf(cfg, n, model_shards, stacked=False)
+                            for n in _kind_cache_shape(cfg, kind, batch,
+                                                       seq_len)}
+            for j, kind in enumerate(cfg.remainder)}
+    return out
+
+
+def _leaf(cfg: ModelConfig, name: str, model_shards: int, stacked: bool):
+    dp = ("pod", "data")
+    lead = (None,) if stacked else ()
+    if name in ("k", "v"):
+        if cfg.n_kv_heads % model_shards == 0:
+            return P(*lead, dp, None, "model", None)
+        return P(*lead, dp, "model", None, None)
+    if name == "S":
+        return P(*lead, dp, None, None, None)
+    if name == "conv":
+        return P(*lead, dp, None,
+                 "model" if cfg.d_model % model_shards == 0 else None)
+    if name in ("h", "c", "n", "m"):
+        return P(*lead, dp, None)
+    return P()
 
 
 def reset_lane(cfg: ModelConfig, cache, lane: int):
@@ -111,26 +167,111 @@ def _attn_decode(x, bp, cfg: ModelConfig, cache, pos, *, window: int):
     k_c, v_c = cache["k"], cache["v"]
     s_c = k_c.shape[1]
     slot = pos % s_c if window > 0 else torch.clamp(pos, max=s_c - 1)
-    lanes = torch.arange(b, device=x.device)
-    k_c[lanes, slot] = k_new[:, 0].to(k_c.dtype)
-    v_c[lanes, slot] = v_new[:, 0].to(v_c.dtype)
+    _write_rows(k_c, slot, k_new[:, 0].to(k_c.dtype))
+    _write_rows(v_c, slot, v_new[:, 0].to(v_c.dtype))
     n_valid = torch.clamp(pos + 1, max=s_c)                # [B]
     valid = (torch.arange(s_c, device=x.device)[None, :]   # ring: oldest kept
              < n_valid[:, None])
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    if current_mesh() is None:
+        o = _attend(q, k_c, v_c, valid, n_rep, x.dtype)
+    else:
+        o = _attend_sharded(q, k_c, v_c, valid, n_rep, x.dtype)
+    o = o.reshape(b, 1, cfg.n_heads * hd)
+    return o @ bp["wo"]
+
+
+def _scores(q, k_c, n_rep: int):
+    """f32 scaled scores [B, H, 1, S] of the query against the cache."""
     # bf16 cache against an f32 query promotes to f32, as jnp does.
     ct = torch.promote_types(q.dtype, k_c.dtype)
     k_full = repeat_kv(k_c, n_rep).flatten(2, 3).to(ct)
-    v_full = repeat_kv(v_c, n_rep).flatten(2, 3)
-    scale = hd ** -0.5
-    scores = torch.einsum("bthd,bshd->bhts", q.to(ct), k_full).float() * scale
+    scale = q.shape[-1] ** -0.5
+    return torch.einsum("bthd,bshd->bhts", q.to(ct), k_full).float() * scale
+
+
+def _probs(scores, valid, dtype):
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _mix(probs, v_c, n_rep: int):
+    """The probabilities' mix of the cache's values: [B, 1, H, hd]."""
+    v_full = repeat_kv(v_c, n_rep).flatten(2, 3)
     pt = torch.promote_types(probs.dtype, v_full.dtype)
-    o = torch.einsum("bhts,bshd->bthd", probs.to(pt), v_full.to(pt))
-    o = o.reshape(b, 1, cfg.n_heads * hd)
-    return o @ bp["wo"]
+    return torch.einsum("bhts,bshd->bthd", probs.to(pt), v_full.to(pt))
+
+
+def _attend(q, k_c, v_c, valid, n_rep: int, dtype):
+    """The plain attention of one token against the lanes' caches."""
+    return _mix(_probs(_scores(q, k_c, n_rep), valid, dtype), v_c, n_rep)
+
+
+def _attend_sharded(q, k_c, v_c, valid, n_rep: int, dtype):
+    """:func:`_attend` under a mesh, as an explicit local region (DTensor's
+    view rules refuse the einsums over a batch-sharded cache in some
+    versions).  Each device takes its shard of the cache as it lies
+    (lanes over the data axes; heads, or the sequence for flash-decode,
+    over the model axis) and the query's matching rows and heads.  On a
+    sequence-sharded cache the scores are gathered over the sequence for
+    the softmax, each device mixes its own rows, and the partial sums
+    are all-reduced.  On one device this is :func:`_attend`, op for op."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = k_c.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(q, DTensor):
+        q = DTensor.from_local(q, mesh, rep, run_check=False)
+    if not isinstance(valid, DTensor):
+        valid = DTensor.from_local(valid, mesh, rep, run_check=False)
+    cpl = k_c.placements
+    seq = [m for m, p in enumerate(cpl) if p == Shard(1)]
+    # The query as the cache lies: its lanes (dim 0) and heads (dim 2).
+    q_pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in cpl]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    (bl, sl, _, _), (b0, s0, _, _) = local_offsets(k_c)
+    vl = valid.redistribute(mesh, rep).to_local()[b0:b0 + bl]
+    s = _scores(ql, k_c.to_local(), n_rep)
+    if seq:
+        s_pl = [Shard(3) if m in seq else p for m, p in enumerate(q_pl)]
+        full_pl = [Replicate() if m in seq else p for m, p in enumerate(q_pl)]
+        s = (DTensor.from_local(s, mesh, s_pl, run_check=False)
+             .redistribute(mesh, full_pl).to_local())
+        probs = _probs(s, vl, dtype)[..., s0:s0 + sl]
+    else:
+        probs = _probs(s, vl, dtype)
+    o = _mix(probs, v_c.to_local(), n_rep)
+    o_pl = [Partial() if m in seq else p for m, p in enumerate(q_pl)]
+    o_shape = tuple(q.shape)
+    o = DTensor.from_local(o, mesh, o_pl, run_check=False, shape=o_shape,
+                           stride=tuple(math.prod(o_shape[i + 1:])
+                                        for i in range(len(o_shape))))
+    return o.redistribute(mesh, [Replicate() if m in seq else p
+                                 for m, p in enumerate(o_pl)])
+
+
+def _write_rows(c, slot, rows) -> None:
+    """``c[b, slot[b]] = rows[b]`` for every lane b, in place (c: [B, S,
+    Hkv, hd], rows [B, Hkv, hd]).  Under a mesh, on each device's shard
+    of ``c``: its lanes, and on a sequence-sharded cache only the slots
+    in its range (an entry outside it writes its shard's own row back)."""
+    if current_mesh() is None:
+        c[torch.arange(c.shape[0], device=c.device), slot] = rows
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = c.device_mesh
+    shape, off = local_offsets(c)
+    # rows as c's lanes and heads are placed: c's dim 2 is rows' dim 1.
+    row_pl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+              else Replicate() for p in c.placements]
+    rows = rows.redistribute(mesh, row_pl).to_local()
+    rep = [Replicate()] * mesh.ndim
+    s = slot.redistribute(mesh, rep).to_local()[off[0]:off[0] + shape[0]]
+    cl = c.to_local()
+    ok = (s >= off[1]) & (s < off[1] + shape[1])
+    s = torch.where(ok, s - off[1], 0)
+    lanes = torch.arange(shape[0], device=cl.device)
+    cl[lanes, s] = torch.where(ok[:, None, None], rows, cl[lanes, s])
 
 
 def _decode_block(x, bp, cfg: ModelConfig, kind: str, cache, pos):
@@ -194,6 +335,7 @@ def decode_logits(params, cfg: ModelConfig, cache, tokens=None, embeds=None):
     else:
         x = embeds.to(params["embed"].dtype)
     _check_slstm_carry(cfg, cache, x.dtype)
+    x = maybe_shard(x, "dp", None, None)
     pos = cache["pos"]
     for p in range(cfg.n_periods):
         for j, kind in enumerate(cfg.block_pattern):
@@ -201,6 +343,7 @@ def decode_logits(params, cfg: ModelConfig, cache, tokens=None, embeds=None):
             bps = {n: w[p] for n, w in params["period"][key].items()}
             bcs = {n: c[p] for n, c in cache["period"][key].items()}
             x = _decode_block(x, bps, cfg, kind, bcs, pos)
+        x = maybe_shard(x, "dp", None, None)
     for j, kind in enumerate(cfg.remainder):
         key = f"{j}_{kind}"
         x = _decode_block(x, params["rem"][key], cfg, kind,
@@ -208,18 +351,22 @@ def decode_logits(params, cfg: ModelConfig, cache, tokens=None, embeds=None):
     pos += 1
     x = L.rms_norm(x, params["final_norm"])
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("btd,vd->btv", x, table).float()
+    return maybe_shard(torch.einsum("btd,vd->btv", x, table).float(),
+                       "dp", None, "model")
 
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, tokens|embeds) -> (next_token, cache).
 
     One decode step for the whole batch (greedy); the cache is updated
-    in place and returned."""
+    in place and returned.  Under a mesh the argmax runs on the gathered
+    last-token logits (``sharding.replicated``): DTensor's argmax over a
+    sharded vocab fails at a batch of one."""
 
     def serve_step(params, cache, tokens=None, embeds=None):
         logits = decode_logits(params, cfg, cache, tokens, embeds)
-        next_token = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+        next_token = replicated(lambda x: torch.argmax(x, dim=-1),
+                                logits[:, -1, :cfg.vocab_size])
         return next_token.to(torch.int32), cache
 
     return serve_step

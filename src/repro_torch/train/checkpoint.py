@@ -14,8 +14,10 @@ casts each leaf to ``like``'s dtype and device.
 
 Writes are atomic (tmp + rename), kept ``keep`` deep, and off the
 training thread (a background writer), so a crash mid-write never
-corrupts the latest checkpoint.  The JAX package's re-sharding on
-restore (``shardings``) has no counterpart on one card.
+corrupts the latest checkpoint.  ``restore(..., shardings=)`` re-shards
+each leaf onto a mesh, as the JAX package's does with ``NamedSharding``
+leaves: here ``models/sharding.NamedSharding(mesh, spec)`` leaves, which
+give each restored tensor its DTensor placements.
 """
 
 from __future__ import annotations
@@ -134,10 +136,12 @@ class CheckpointManager:
         steps = self._list()
         return max(steps) if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Restore into the structure of ``like``: each tensor leaf with
         its dtype and device (bf16 rounds the stored f32, which holds a
-        saved bf16 exactly)."""
+        saved bf16 exactly); re-sharded onto a mesh by ``shardings``, a
+        tree matching ``like`` of ``NamedSharding`` leaves (None: a leaf
+        as it is), if given."""
         path = os.path.join(self.dir, f"step_{step:010d}.npz")
         with open(path + ".json") as f:
             manifest = json.load(f)
@@ -145,4 +149,24 @@ class CheckpointManager:
             raise ValueError(f"{path}: the manifest says step "
                              f"{manifest['step']}, not {step}")
         with np.load(path) as data:
-            return _rebuild(like, data)
+            tree = _rebuild(like, data)
+        return tree if shardings is None else _reshard(tree, shardings)
+
+
+def _reshard(tree, shardings):
+    """Each leaf of ``tree`` as a DTensor with its ``NamedSharding``'s
+    placements (a None sharding leaves it as it is)."""
+    from repro_torch.models.sharding import distribute
+    kids = _children(tree)
+    if kids is None:
+        if shardings is None:
+            return tree
+        mesh, spec = shardings
+        return distribute(tree, spec, mesh)
+    vals = [_reshard(c, s) for (_, c), (_, s) in
+            zip(kids, _children(shardings) or [(k, None) for k, _ in kids])]
+    if isinstance(tree, dict):
+        return dict(zip(sorted(tree), vals))
+    if hasattr(tree, "_fields"):
+        return type(tree)(*vals)
+    return type(tree)(vals)

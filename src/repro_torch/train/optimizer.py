@@ -18,9 +18,11 @@ reduction, not XLA's order, and XLA reassociates some of the update's
 products, so the update agrees with JAX's to f32 rounding (the tests'
 bound is 1e-5), not bit for bit.
 
-No counterpart on one card: ``zero_specs`` and ``_constrain``, the
-ZeRO-1 sharding specs of the master and moments over a ``data`` mesh
-axis (ROADMAP Queue 1 item 17's mesh work).
+Under a mesh (``models/sharding.use_mesh``) the trees are DTensors:
+:func:`zero_specs` gives the ZeRO-1 specs of the master, the moments and
+the accumulated gradients (each param spec with the ``data`` axis on a
+divisible free dim), and ``_constrain`` holds a tree to its specs, as
+the JAX package's; without a mesh both are the identity.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import ModelConfig, forward, params_from_numpy
+from repro_torch.models.sharding import (P, axis_names, axis_size,
+                                         current_mesh, maybe_shard)
 
 F32 = torch.float32
 
@@ -89,14 +93,43 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(x, dtype=F32, device=device)
 
 
-def init_opt(params) -> OptState:
+def zero_specs(param_specs, params_abstract, mesh=None):
+    """Extend each param spec with the data axis on its first free dim
+    that the axis divides (ZeRO-1 over ``data``); the specs as they are
+    without a mesh or a ``data`` axis."""
+    mesh = mesh or current_mesh()
+    if mesh is None or "data" not in axis_names(mesh):
+        return param_specs
+    dsize = axis_size(mesh, "data")
+
+    def extend(spec, leaf):
+        parts = list(spec) + [None] * (leaf.dim() - len(spec))
+        for i, (s, dim) in enumerate(zip(parts, leaf.shape)):
+            if s is None and dim % dsize == 0 and dim >= dsize:
+                parts[i] = "data"
+                return P(*parts)
+        return P(*parts)
+
+    return tree_map(extend, param_specs, params_abstract)
+
+
+def _constrain(tree, specs):
+    """Each leaf held to its spec under the active mesh (a
+    redistribution); the tree as it is without a mesh or specs."""
+    if current_mesh() is None or specs is None:
+        return tree
+    return tree_map(lambda x, s: maybe_shard(x, *s), tree, specs)
+
+
+def init_opt(params, zspecs=None) -> OptState:
     """f32 master copies of ``params`` and zero moments, on their
-    device."""
+    device; under a mesh held to ``zspecs``."""
     master = tree_map(lambda x: x.detach().to(F32, copy=True), params)
     dev = tree_leaves(params)[0].device
-    return OptState(torch.zeros((), dtype=torch.int32, device=dev), master,
-                    tree_map(torch.zeros_like, master),
-                    tree_map(torch.zeros_like, master))
+    return OptState(torch.zeros((), dtype=torch.int32, device=dev),
+                    _constrain(master, zspecs),
+                    _constrain(tree_map(torch.zeros_like, master), zspecs),
+                    _constrain(tree_map(torch.zeros_like, master), zspecs))
 
 
 @functools.cache
@@ -127,7 +160,12 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     a constant as a multiply by its f32 reciprocal, and
     ``lr * warm * (min_frac + (1 - min_frac) * 0.5 * (1 + cos))`` as
     ``(warm * lr) * fma(1 + cos, 0.5 * (1 - min_frac), min_frac)`` (the
-    fma in f64, where the product is exact), with :func:`_cosf`."""
+    fma in f64, where the product is exact), with :func:`_cosf`.  A
+    fake or meta step (the dry run's: it has no value to take to the
+    host) gets the same expression in torch's f32 ops on its device."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(step) or step.device.type == "meta":
+        return _lr_traced(cfg, step)
     f32 = np.float32
     s = step.detach().cpu().numpy().astype(f32)
     warm = np.minimum(s * (f32(1) / f32(max(cfg.warmup_steps, 1))), f32(1))
@@ -142,10 +180,22 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
                             ).to(step.device)
 
 
-def adamw_update(opt: OptState, grads, cfg: AdamWConfig) -> OptState:
+def _lr_traced(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """:func:`lr_at`'s expression in torch's f32 ops, for a step with no
+    value (the dry run); its numbers are not held to XLA's."""
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(torch.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
+
+
+def adamw_update(opt: OptState, grads, cfg: AdamWConfig,
+                 zspecs=None) -> OptState:
     """One AdamW step on the f32 master from ``grads`` (a tree as the
     params, any float dtype): global-norm clipping, bias correction,
-    decoupled weight decay."""
+    decoupled weight decay; under a mesh the new trees held to
+    ``zspecs``."""
     step = opt.step + 1
     dev = step.device
     g32 = tree_map(lambda g: g.to(F32), grads)
@@ -170,16 +220,32 @@ def adamw_update(opt: OptState, grads, cfg: AdamWConfig) -> OptState:
     out = [upd(*x) for x in zip(tree_leaves(g32), tree_leaves(opt.m),
                                 tree_leaves(opt.v), tree_leaves(opt.master))]
     m, v, master = ([o[i] for o in out] for i in range(3))
-    return OptState(step, _unflatten(opt.master, master),
-                    _unflatten(opt.m, m), _unflatten(opt.v, v))
+    return OptState(step, _constrain(_unflatten(opt.master, master), zspecs),
+                    _constrain(_unflatten(opt.m, m), zspecs),
+                    _constrain(_unflatten(opt.v, v), zspecs))
+
+
+def _microbatches(x, n: int):
+    """x [B, ...] as [n, B / n, ...], microbatch i the rows [i B / n,
+    (i + 1) B / n), as JAX splits it.  Under a mesh the batch is
+    gathered first (DTensor cannot split a sharded dim) and each
+    microbatch's rows are then sharded over the data axes."""
+    rest = [None] * (x.dim() - 1)
+    x = maybe_shard(x, None, *rest).reshape((n, -1) + tuple(x.shape[1:]))
+    return maybe_shard(x, None, "dp", *rest)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                    n_microbatches: int = 1, remat: str = "full"):
+                    n_microbatches: int = 1, remat: str = "full",
+                    param_specs=None, zspecs=None):
     """The train step ``(params, opt, batch) -> (params, opt, loss)``.
     batch: {'tokens'|'embeds', 'labels'} with the global batch leading;
     with microbatches it is split on that dim and the gradients are
-    accumulated in f32, in order, as JAX's scan does."""
+    accumulated in f32, in order, as JAX's scan does.  Under a mesh the
+    gradients and the optimizer's trees are held to ``zspecs`` and the
+    new params to ``param_specs``, as the JAX package's step does."""
+    constrain = lambda leaves, specs: tree_leaves(
+        _constrain(_unflatten(specs, leaves), specs)) if specs else leaves
 
     def loss_and_grads(params, mb):
         leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
@@ -195,24 +261,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     def train_step(params, opt: OptState, batch):
         if n_microbatches == 1:
             loss, grads = loss_and_grads(params, batch)
-            grads = [g.to(F32) for g in grads]
+            grads = constrain([g.to(F32) for g in grads], zspecs)
         else:
-            mbs = {k: x.reshape((n_microbatches, -1) + x.shape[1:])
+            mbs = {k: _microbatches(x, n_microbatches)
                    for k, x in batch.items()}
-            grads = [torch.zeros(x.shape, dtype=F32, device=x.device)
-                     for x in tree_leaves(params)]
+            grads = constrain([torch.zeros_like(x, dtype=F32)
+                               for x in tree_leaves(params)], zspecs)
             loss = _f32(0.0, grads[0].device)
             for i in range(n_microbatches):
                 li, gi = loss_and_grads(params,
                                         {k: x[i] for k, x in mbs.items()})
-                grads = [a + g.to(F32) for a, g in zip(grads, gi)]
+                grads = constrain([a + g.to(F32) for a, g in zip(grads, gi)],
+                                  zspecs)
                 loss = loss + li
             n = _f32(n_microbatches, loss.device)
             grads = [g / n for g in grads]
             loss = loss / n
-        opt = adamw_update(opt, _unflatten(params, grads), opt_cfg)
+        opt = adamw_update(opt, _unflatten(params, grads), opt_cfg, zspecs)
         dtype = tree_leaves(params)[0].dtype
-        return tree_map(lambda mp: mp.to(dtype), opt.master), opt, loss
+        new = tree_map(lambda mp: mp.to(dtype), opt.master)
+        return _constrain(new, param_specs), opt, loss
 
     return train_step
 

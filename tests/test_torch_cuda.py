@@ -1416,3 +1416,147 @@ def test_rglru_scan_on_the_card_matches_a_sequential_loop(cuda):
         want = torch.stack(want, 1)
         torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(h_last, want[:, -1], rtol=1e-5, atol=1e-5)
+
+
+def _shapes(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    if isinstance(x, (tuple, list)):
+        return tuple(_shapes(y) for y in x)
+    return x
+
+
+@pytest.mark.cuda
+def test_each_kernel_op_fake_gives_the_kernel_shapes(cuda):
+    """Every custom op of kernels/library.py: its fake implementation
+    (fake CUDA tensors) gives the shapes and dtypes the kernel gives."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+    g = torch.Generator(device=cuda).manual_seed(0)
+    i64 = lambda *s, hi=64: torch.randint(0, hi, s, generator=g, device=cuda)
+    f32 = lambda *s: torch.rand(s, generator=g, device=cuda)
+    n, B, k = 64, 8, 3
+    col = lambda: i64(n, hi=200)
+    cases = {
+        "bucket_lookup": (ops.bucket_lookup_op, (col(), col(), i64(B)),
+                          dict(assoc=4)),
+        "access_probe": (ops.access_probe_op,
+                         (col(), col(), col(), col(), i64(B),
+                          torch.tensor(5, device=cuda)),
+                         dict(assoc=4, history_len=8)),
+        "access_probe_facts": (ops.access_probe_op,
+                               (col(), col(), col(), col(), i64(B),
+                                torch.tensor(5, device=cuda)),
+                               dict(assoc=4, history_len=8,
+                                    meta=(col(), col(), col()), ts=i64(B),
+                                    experts=("lru", "lfu"))),
+        "hit_metadata_update": (ops.hit_metadata_update_op,
+                                (col(), col(), f32(n, 4), i64(B), i64(B),
+                                 i64(B), i64(B)), {}),
+        "ranked_eviction": (ops.ranked_eviction_op,
+                            (col(), col(), col(), col(), i64(B), i64(B, hi=2),
+                             torch.ones(B, dtype=torch.bool, device=cuda),
+                             torch.ones(B, dtype=torch.int64, device=cuda),
+                             i64(B)), dict(window=8, k=k,
+                                           experts=("lru", "lfu"))),
+        "ranked_eviction_draw": (ops.ranked_eviction_draw_op,
+                                 (col(), col(), col(), col(), i64(4, 2),
+                                  f32(4, 2), torch.ones(B, dtype=torch.bool,
+                                                        device=cuda),
+                                  torch.tensor(1, device=cuda), i64(B)),
+                                 dict(window=8, k=k, experts=("lru", "lfu"))),
+        "flash_attention": (ops.flash_attention_op,
+                            tuple(torch.randn(1, 128, 4, 64, device=cuda,
+                                              dtype=torch.bfloat16)
+                                  for _ in range(3)), {}),
+        "sampled_eviction": (ops.sampled_eviction_op,
+                             (f32(n + 8), f32(n + 8), f32(n + 8), f32(n + 8),
+                              i64(B), i64(B, hi=2), 3.0), dict(window=8, k=k)),
+        "metadata_update": (ops.metadata_update_op,
+                            (f32(n), f32(n), i64(B), f32(B), 3.0), {}),
+    }
+    for name, (fn, args, kw) in cases.items():
+        want = _shapes(fn(*args, **kw))
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = lambda t: (mode.from_tensor(t)
+                              if isinstance(t, torch.Tensor) else t)
+            got = _shapes(fn(*tree_map(fake, args),
+                             **tree_map(fake, kw)))
+        assert got == want, name
+    # The in-place ops keep their columns' shapes and write nothing fake.
+    cols = (col(), f32(n))
+    with FakeTensorMode() as mode:
+        fc = tuple(mode.from_tensor(c) for c in cols)
+        ops.drop_scatter_op_(mode.from_tensor(i64(B)), fc,
+                             (1, mode.from_tensor(f32(B))))
+        ops.metadata_update_op_(mode.from_tensor(f32(n)),
+                                mode.from_tensor(f32(n)),
+                                mode.from_tensor(i64(B)),
+                                mode.from_tensor(f32(B)), 1.0)
+        assert _shapes(fc) == _shapes(cols)
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_train_step_equals_the_plain_step(cuda):
+    """A smoke train step with DTensor params and the ZeRO-1 specs live on
+    the one-rank card mesh: every output leaf bit-equal to the plain
+    step's."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import build_param_specs
+    from repro_torch.train import (AdamWConfig, init_opt, make_train_step,
+                                   zero_specs)
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = smoke_config(get_arch("smollm-135m"))
+    params = init_params(cfg, generator=torch.Generator(device=cuda)
+                         .manual_seed(0), device=cuda)
+    batch = synthetic_batches(cfg, 4, 64, seed=0, device=cuda)(0)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    kw = dict(n_microbatches=2, remat="full")
+    want = make_train_step(cfg, ocfg, **kw)(params, init_opt(params), batch)
+    mesh = M.make_card_mesh(0)
+    try:
+        specs = build_param_specs(cfg, model_shards=1)
+        zspecs = zero_specs(specs, params, mesh)
+        step = make_train_step(cfg, ocfg, param_specs=specs, zspecs=zspecs,
+                               **kw)
+        with sh.use_mesh(mesh):
+            dp = sh.distribute_tree(params, specs, mesh)
+            db = {k: sh.distribute(v, sh.P("dp", None), mesh)
+                  for k, v in batch.items()}
+            got = step(dp, init_opt(dp, zspecs), db)
+    finally:
+        M.teardown()
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    for a, b in zip(tree_leaves(got[0]) + [x for t in got[1][1:]
+                                           for x in tree_leaves(t)]
+                    + [got[2]],
+                    tree_leaves(want[0]) + [x for t in want[1][1:]
+                                            for x in tree_leaves(t)]
+                    + [want[2]]):
+        assert torch.equal(full(a), b)
+
+
+@pytest.mark.cuda
+def test_flash_roofline_bound_is_under_the_kernel_time(cuda):
+    """The counter's bound of one flash call at yi-9b's shape, T = 4096
+    (its FLOPs over 989 TFLOP/s), is no more than the kernel's measured
+    time."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.op_cost import count
+    q = torch.randn(1, 4096, 32, 128, device=cuda, dtype=torch.bfloat16)
+    kv = attention.repeat_kv(torch.randn(1, 4096, 4, 128, device=cuda,
+                                         dtype=torch.bfloat16), 8)
+    _, c = count(ops.flash_attention_op, q, kv, kv)
+    bound_ms = c.flops / rl.PEAK_FLOPS * 1e3
+    assert bound_ms == pytest.approx(0.139, rel=0.005)
+    ops.flash_attention_op(q, kv, kv)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(10):
+        ops.flash_attention_op(q, kv, kv)
+    b.record()
+    torch.cuda.synchronize()
+    assert a.elapsed_time(b) / 10 >= bound_ms
