@@ -8,6 +8,7 @@
                                               # the step's operators and
                                               # trace alone (no result)
     python3 chip_smoke.py --dm-only           # phase 11 cold and warm
+    python3 chip_smoke.py --ranks-only        # phases 11-13, then 18
 
 ``--requests N`` shortens the end-to-end phase; below ~4.5M requests
 the table does not fill, and the run fails its eviction check.
@@ -19,6 +20,8 @@ from an older checkout's ``src/`` (the before of a change to the step).
 (the first run captures the DM step's graph) with the capture's time,
 the host's time in the replays and the device time of every 512
 replays, and stops; it also runs from an older checkout's ``src/``.
+``--ranks-only`` runs phases 11, 12 and 13, which phase 18 is held to,
+then phase 18, and stops.
 
 Phases, each of which raises (exit code != 0) on any failure:
 
@@ -309,6 +312,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    CUDA tensors: only the mirrored dead outputs (``audit.MIRRORED``:
    the JAX package's audit reports four of the five).  (e) The lint of
    ``src/repro_torch``: no finding.
+18. The pool across ranks (``Cluster.make(..., group=)``,
+   ``dm/ranks.py``), phase 11's cluster at full size, run right after
+   phase 13.  (a) A one-rank NCCL group in this process, all 8 shards
+   local: every ``DMCache`` leaf and the hits bit-equal to phase 11's
+   fused run (weights at 0 ulp), each cache kernel launched 8 times a DM
+   step.  (b) R = 2 and R = 4 processes (``torch.multiprocessing``,
+   spawn) on this card over ``gloo``, joined by a ``FileStore`` in a
+   git-ignored directory: each rank's shards bit-equal to its block of
+   phase 11's fused run and the hits on every rank; on R = 4 also
+   phase 12's replicated arm through ``run_scenario`` (window by window
+   and event by event) and phase 13 (a)'s sequence (its reports and
+   final leaves).  (c) Where there are two or more cards, one rank a
+   card over NCCL runs (a)'s check; on one card a line says it did not
+   run.  The kernels are built here before any rank starts; a rank's
+   non-zero exit fails the phase.  Each arm logs its requests/s and µs
+   a DM step.
 
 Launch counts are the kernels' own: each kernel adds one to a counter
 on the device, also when its launch is replayed from a CUDA graph; the
@@ -316,7 +335,8 @@ counters are set to 0 just before each run of a main path (the
 ``kernels.ops`` entry point's, the cache's, the prefill forward's, the
 engine's, phase 9's, 10's, 11's, 12's arms and 13's segments and
 scenario runs, phase 14's training loop and prefill, phase 15's oracle
-runs, phase 16's prefills and decodes) and read just after it.
+runs, phase 16's prefills and decodes, phase 18's runs, each rank's in
+its own process) and read just after it.
 
 The second-to-last line is the kernels' JSON record (each with the
 launch floor, ``floor_ms``), the last line
@@ -330,6 +350,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import sys
 import time
 from pathlib import Path
@@ -2115,12 +2136,14 @@ def dm_cold_warm(dev, card: str, tag: str = "") -> list:
 
 
 def run_dm(dev, card: str, results: dict, profile: int = 0,
-           out_dir: Path | None = None) -> tuple:
+           out_dir: Path | None = None, keep: dict | None = None) -> tuple:
     """Phase 11: YCSB-A through ``Cluster.execute`` on an 8 x 8 cluster
     of phase 3's table, both backends, then the sanitize-armed re-run of
     its first groups; ``profile``: then trace that many fused DM steps
     (and twice as many).  Returns (the phase's numbers, the fused run's
-    final cluster and its YCSB-A keys), phase 13's start."""
+    final cluster and its YCSB-A keys), phase 13's start; ``keep``
+    receives the fused run's hits and its [NG, G, 64] inputs (phase
+    18's)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2192,6 +2215,8 @@ def run_dm(dev, card: str, results: dict, profile: int = 0,
     (ha, pa), (hb, pb) = runs["fused"], runs["reference"]
     if not torch.equal(ha, hb):
         raise AssertionError("phase 11: fused and reference hits differ")
+    if keep is not None:
+        keep.update(hits=ha, k3=k3, w3=w3, dm=cpu_copy(fused.dm))
     same_parts("phase 11", pa, pb, 4, weight_ulp=16)
 
     # The sanitize-armed re-run of the first groups: it raises nothing
@@ -2220,13 +2245,16 @@ def run_dm(dev, card: str, results: dict, profile: int = 0,
     return out, fused, keys
 
 
-def run_failover(dev, card: str, results: dict) -> dict:
+def run_failover(dev, card: str, results: dict,
+                 keep: dict | None = None) -> dict:
     """Phase 12: ``benchmarks/elasticity.py``'s failover leg on phase 11's
     cluster shape, a replicated arm against a control, through
     ``run_scenario`` as the benchmark runs it: windows of 16 rounds, a
     ``HealthMonitor`` that marks the failed shard after two missed beats
     (the window-end observations of the failure's window and the next),
-    and the replicas re-elected from the load EMA at every window."""
+    and the replicas re-elected from the load EMA at every window.
+    ``keep`` receives the trace and the replicated arm's windows and
+    events (phase 18's)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2320,6 +2348,8 @@ def run_failover(dev, card: str, results: dict) -> dict:
                                  f"{FAIL_AT + 2} to the recovery")
         if rewarm["drained_objects"] <= 0:
             raise AssertionError(f"phase 12 {name}: the rewarm moved nothing")
+        if keep is not None and name == "replicated":
+            keep.update(trace=trace, windows=res.windows, events=res.events)
         cl = res.cluster
     if len(core_cache._GRAPHS) - n_graphs > 1:
         raise AssertionError("phase 12: a membership change re-captured the "
@@ -2432,7 +2462,8 @@ def ycsb_a_continuation(keys11, n: int):
 
 
 def run_elastic(dev, card: str, results: dict, cl, keys11,
-                profile: int = 0, out_dir: Path | None = None) -> dict:
+                profile: int = 0, out_dir: Path | None = None,
+                keep: dict | None = None) -> dict:
     """Phase 13: the elastic pool on the card.  (a) At full size, on phase
     11's final fused cluster: lanes 8 -> 16 and capacity x2 (a scalar
     write), 64 groups at 16 lanes a shard, the lane flush back to 8 and
@@ -2440,7 +2471,8 @@ def run_elastic(dev, card: str, results: dict, cl, keys11,
     sweep, 64 groups at 8 lanes; the lane shrink and the first drain
     steps against the port's CPU leg on a host copy.  (b) At
     ``benchmarks/elasticity.py``'s own size through ``run_scenario``,
-    without and with a ``WidthController``."""
+    without and with a ``WidthController``.  ``keep`` receives (a)'s
+    inputs, sizes, reports and final DMCache (phase 18's)."""
     import numpy as np
     import torch
     from repro_torch.core import CacheConfig
@@ -2606,6 +2638,12 @@ def run_elastic(dev, card: str, results: dict, cl, keys11,
                              f"group over the capacity")
     recount("after the last segment", cl.dm, ls)
     out["bytes_cached"] = st.bytes_cached.tolist()
+    if keep is not None:
+        keep.update(
+            inputs=(k3a, w3a, k3b, w3b), sizes=(wide, narrow, grown, shrunk),
+            reports=[out[k]["report"] for k in ("lanes_grow", "grow",
+                                                "lanes_shrink", "drain")],
+            dm=cpu_copy(cl.dm))
 
     # (b) The benchmark's own size through run_scenario.
     keys, _ = ycsb("C", SCENARIO_REQUESTS, n_keys=SCENARIO_KEYS, seed=0)
@@ -2669,6 +2707,306 @@ def run_elastic(dev, card: str, results: dict, cl, keys11,
         f"{ELASTIC_CPU_STEPS} steps (the lane flush in full); "
         f"(b) {len(a)} windows equal with and without the width "
         f"controller; phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the pool across ranks.
+# ---------------------------------------------------------------------------
+
+RANKS = (2, 4)            # (b)'s process counts on the one card
+RANKS_LEGS = {2: ("dm",), 4: ("dm", "failover", "elastic")}
+RANKS_TIMEOUT = 600       # seconds for every rank of one arm to exit
+
+
+def same_block(tag: str, want, got, pool) -> None:
+    """A rank's DMCache bit-equal to its block of the one-card one (a
+    host copy), leaf by leaf, floats included."""
+    import torch
+    for part, a, b in zip(("state", "clients", "stats"), pool.block(want),
+                          got):
+        for f, x, y in zip(a._fields, a, b):
+            if x.shape != y.shape or not torch.equal(x, y.cpu()):
+                raise AssertionError(f"{tag}: {part}.{f} differs from its "
+                                     f"block of the one-card run")
+
+
+@contextlib.contextmanager
+def collective_time(acc: dict):
+    """Host seconds and calls of each ``Pool`` collective while entered
+    (gloo's calls block the host until done; NCCL's return once
+    enqueued)."""
+    from repro_torch.dm import ranks
+    names = ("exchange", "gather_ranks", "any_", "sum_", "broadcast")
+    saved = {n: getattr(ranks.Pool, n) for n in names}
+
+    def timed(name, fn):
+        def call(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                s, n = acc.get(name, (0.0, 0))
+                acc[name] = (s + time.perf_counter() - t0, n + 1)
+        return call
+
+    for n, fn in saved.items():
+        setattr(ranks.Pool, n, timed(n, fn))
+    try:
+        yield acc
+    finally:
+        for n, fn in saved.items():
+            setattr(ranks.Pool, n, fn)
+
+
+def ranks_dm(dev, tag: str, group, want: dict):
+    """Phase 11's fused run through ``Cluster.make(..., group=)``: the
+    rank's shards and the hits against phase 11's.  Returns (the rank's
+    final cluster, its numbers)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import CacheConfig
+    from repro_torch.core import cache as core_cache
+    from repro_torch.dm import Cluster
+    from repro_torch.kernels import ops
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY)
+    k3, w3 = want["k3"].to(dev), want["w3"].to(dev)
+    NG = k3.shape[0]
+    cl = Cluster.make(cfg, DM_SHARDS, DM_LANES, SEED, device=dev,
+                      group=group)
+    ops.reset_launches()
+    graphs = len(core_cache._GRAPHS)
+    dist.barrier(group)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with collective_time({}) as coll:
+        cl, hits = cl.execute(k3, w3, route_factor=DM_ROUTE)
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = cache_launches()
+    captured = len(core_cache._GRAPHS) - graphs
+    if not torch.equal(hits.cpu(), want["hits"]):
+        raise AssertionError(f"phase 18 {tag}: hits differ from phase 11's")
+    same_block(f"phase 18 {tag}", want["dm"], cl.dm, cl.pool)
+    n_local = cl.pool.n_local
+    per = n_local * (NG + captured)
+    if any(n != per for n in launches.values()):
+        raise AssertionError(f"phase 18 {tag}: launches {launches}, not "
+                             f"{per} ({n_local} a DM step)")
+    issued = int((k3 != 0).sum())
+    return cl, dict(wall_s=wall, requests_per_s=issued / wall,
+                    us_per_step=wall * 1e6 / NG, launches=launches,
+                    graphs_captured=captured, shards=n_local,
+                    collectives_s={n: t for n, (t, _) in coll.items()},
+                    collective_calls={n: c for n, (_, c) in coll.items()})
+
+
+def ranks_failover(dev, group, want: dict) -> dict:
+    """Phase 12's replicated arm through ``run_scenario(group=)``: every
+    window and event equal to the one-card arm's."""
+    import torch
+    from repro_torch.core import CacheConfig
+    from repro_torch.elastic import HealthMonitor, run_scenario
+    S, W = DM_SHARDS, FAIL_WINDOW
+    T = FAIL_GROUPS * W
+    cfg = CacheConfig(n_buckets=N_BUCKETS, assoc=ASSOC, capacity=CAPACITY)
+    timeline = [(FAIL_AT * W, ("fail_shard", FAIL_SHARD)),
+                (RECOVER_AT * W, ("recover_shard", FAIL_SHARD))]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = run_scenario(cfg, want["trace"].ravel(), timeline, n_shards=S,
+                       lanes_per_shard=DM_LANES, horizon=T, window=W,
+                       health=HealthMonitor(S), replicate_hot=FAIL_HOT,
+                       seed=7, device=dev, group=group)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(want["windows"], res.windows)):
+        if a != b:
+            raise AssertionError(f"phase 18 failover: window {i} differs "
+                                 f"from phase 12's replicated arm")
+    if (len(res.windows) != len(want["windows"])
+            or res.events != want["events"]):
+        raise AssertionError("phase 18 failover: the windows or events "
+                             "differ from phase 12's replicated arm")
+    return dict(wall_s=wall, windows=len(res.windows))
+
+
+def ranks_elastic(dev, cl, want: dict) -> dict:
+    """Phase 13 (a)'s sequence on the rank's phase-11 cluster: the lane
+    grow, the capacity grow, 64 groups at 16 lanes, the lane flush, the
+    shrink drain, the budget sweep and 64 groups at 8 lanes; the reports
+    and the final shards equal phase 13 (a)'s."""
+    import torch
+    from repro_torch.elastic import resize as rz
+    k3a, w3a, k3b, w3b = (x.to(dev) for x in want["inputs"])
+    wide, narrow, grown, shrunk = want["sizes"]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    reports = []
+    cl, rep = cl.with_lanes(wide)
+    reports.append(tuple(rep))
+    cl, rep = cl.drain_to(grown)
+    reports.append(tuple(rep))
+    cl, _ = cl.execute(k3a, w3a, route_factor=DM_ROUTE)
+    cl, rep = cl.with_lanes(narrow)
+    reports.append(tuple(rep))
+    cl, rep = cl.drain_to(shrunk, batch_per_shard=ELASTIC_BATCH)
+    reports.append(tuple(rep))
+    dm, swept = rz.enforce_budget(cl.local, cl.dm, pool=cl.pool)
+    cl, _ = cl._replace(dm=dm).execute(k3b, w3b, route_factor=DM_ROUTE)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if reports != [tuple(r) for r in want["reports"]] or swept:
+        raise AssertionError(f"phase 18 elastic: reports {reports} (swept "
+                             f"{swept}), phase 13 (a): {want['reports']}")
+    same_block("phase 18 elastic", want["dm"], cl.dm, cl.pool)
+    return dict(wall_s=wall, reports=reports)
+
+
+def ranks_worker(rank: int, world: int, work: str, backend: str,
+                 legs: tuple) -> None:
+    """One rank of (b) or (c): phase 11's run, then ``legs``' others;
+    its numbers to ``work/r{world}_{backend}_{rank}.json``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    work = Path(work)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(work / f"store_{world}_{backend}"), world), rank=rank,
+        world_size=world)
+    try:
+        group = dist.group.WORLD
+        want = torch.load(work / "phase11.pt", weights_only=False)
+        cl, out = ranks_dm(dev, f"R = {world} {backend} rank {rank}",
+                           group, want)
+        if "failover" in legs:
+            out["failover"] = ranks_failover(
+                dev, group, torch.load(work / "phase12.pt",
+                                       weights_only=False))
+        if "elastic" in legs:
+            out["elastic"] = ranks_elastic(
+                dev, cl, torch.load(work / "phase13.pt", weights_only=False))
+        (work / f"r{world}_{backend}_{rank}.json").write_text(
+            json.dumps(out, default=float))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(work: Path, world: int, backend: str, legs: tuple) -> list:
+    """``world`` ranks of :func:`ranks_worker`, joined; any rank's
+    failure raises here.  Returns each rank's numbers."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(ranks_worker,
+                             args=(world, str(work), backend, legs),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + RANKS_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 18 R = {world} {backend}: the "
+                                     f"ranks did not exit in "
+                                     f"{RANKS_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    return [json.loads((work / f"r{world}_{backend}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def log_arm(card: str, tag: str, outs: list, issued: int, NG: int) -> dict:
+    """An arm's requests/s and µs a DM step: the slowest rank's wall."""
+    wall = max(o["wall_s"] for o in outs)
+    coll = ", ".join(f"{n} {t:.2f} s ({outs[0]['collective_calls'][n]})"
+                     for n, t in outs[0]["collectives_s"].items())
+    log(f"[{card}] phase 18 {tag}: {issued} requests in {wall:.2f} s = "
+        f"{issued / wall:.0f} requests/s, {wall * 1e6 / NG:.0f} us/step; "
+        f"each rank's launches {outs[0]['launches']}; rank 0's host time "
+        f"in the collectives (calls): {coll}")
+    return dict(wall_s=wall, requests_per_s=issued / wall,
+                us_per_step=wall * 1e6 / NG, ranks=outs)
+
+
+def run_ranks(dev, card: str, results: dict, k11: dict, k12: dict,
+              k13: dict) -> dict:
+    """Phase 18: (a) one NCCL rank here, (b) R = 2 and 4 gloo processes
+    on this card, (c) one NCCL rank a card where there are several, each
+    held to phases 11, 12 and 13 (a) (``k11``, ``k12``, ``k13``: what
+    they kept)."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    want11 = dict(hits=k11["hits"].cpu(), k3=k11["k3"].cpu(),
+                  w3=k11["w3"].cpu(), dm=k11["dm"])
+    NG = want11["k3"].shape[0]
+    issued = int((want11["k3"] != 0).sum())
+    log(f"phase 18: phase 11's cluster ({DM_SHARDS} shards x {DM_LANES} "
+        f"lanes, {issued} requests, {NG} groups) through Cluster.make("
+        f"group=): one NCCL rank here, then {RANKS} gloo processes on this "
+        f"card, then one NCCL rank a card")
+    out: dict = {}
+
+    # (a) One NCCL rank in this process, every shard local.
+    runtime.lib()
+    torch.cuda.set_device(dev)
+    M._group("nccl", 1, dist.HashStore)
+    try:
+        _, a = ranks_dm(dev, "(a) one NCCL rank", dist.group.WORLD,
+                        want11)
+    finally:
+        M.teardown()
+    for k in CACHE_KERNELS:
+        results[k]["launches_ranks"] = a["launches"][k]
+    out["one_rank_nccl"] = log_arm(card, "(a) one NCCL rank", [a], issued,
+                                   NG)
+
+    # (b) and (c) in processes: the kernels are built (above), the inputs
+    # written where every rank reads them.
+    work = ROOT / "build" / f"phase18_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        torch.save(want11, work / "phase11.pt")
+        torch.save(dict(trace=k12["trace"], windows=k12["windows"],
+                        events=k12["events"]), work / "phase12.pt")
+        torch.save(dict(inputs=tuple(x.cpu() for x in k13["inputs"]),
+                        sizes=k13["sizes"], reports=k13["reports"],
+                        dm=k13["dm"]), work / "phase13.pt")
+        for world in RANKS:
+            outs = spawn_ranks(work, world, "gloo", RANKS_LEGS[world])
+            out[f"gloo_{world}"] = log_arm(
+                card, f"(b) {world} gloo ranks on one card", outs, issued, NG)
+            for leg in ("failover", "elastic"):
+                if leg in RANKS_LEGS[world]:
+                    wall = max(o[leg]["wall_s"] for o in outs)
+                    log(f"[{card}] phase 18 (b) {world} gloo ranks, "
+                        f"{leg}: {wall:.2f} s, equal to phase "
+                        f"{12 if leg == 'failover' else '13 (a)'}")
+        n_cards = torch.cuda.device_count()
+        world = max((r for r in (2, 4, 8) if r <= n_cards), default=0)
+        if world:
+            outs = spawn_ranks(work, world, "nccl", ("dm",))
+            out[f"nccl_{world}"] = log_arm(
+                card, f"(c) {world} NCCL ranks, one a card", outs, issued,
+                NG)
+        else:
+            log(f"phase 18 (c): not run: {n_cards} card on this machine "
+                f"(one NCCL rank a card needs two or more)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: (a) and (b) bit-equal to phase 11's fused run on every "
+        f"rank; R = 4 equals phase 12's replicated arm window by window and "
+        f"phase 13 (a)'s leaves; phase wall {out['wall_s']:.1f} s")
     return out
 
 
@@ -4545,6 +4883,10 @@ def main() -> int:
                     help="only run phase 11's fused run cold and warm with "
                          "host and device timing, its lines prefixed with "
                          "TAG (it runs on an older checkout's src/ too)")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="only run phases 11, 12 and 13 (a) and (b), which "
+                         "phase 18 is held to, then phase 18 (the pool "
+                         "across ranks): no result lines")
     ap.add_argument("--step-only", action="store_true",
                     help="only plan phase 3's trace, count one eager step's "
                          "operators per backend and, with --profile, trace "
@@ -4576,6 +4918,15 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     if a.dm_only is not None:
         dm_cold_warm(dev, card, a.dm_only and a.dm_only + " ")
+        return 0
+    if a.ranks_only:
+        results = {k: {} for k in CACHE_KERNELS}
+        keep = {n: {} for n in ("11", "12", "13")}
+        _, cluster, keys11 = run_dm(dev, card, results, keep=keep["11"])
+        run_failover(dev, card, results, keep=keep["12"])
+        run_elastic(dev, card, results, cluster, keys11, keep=keep["13"])
+        del cluster
+        run_ranks(dev, card, results, *keep.values())
         return 0
     if a.step_only:
         from repro_torch.core import CacheConfig
@@ -4615,12 +4966,16 @@ def main() -> int:
     prof_dir = Path(a.out).parent if a.out else None
     e2e["tenants"] = run_tenants(dev, card, results, a.profile, prof_dir)
     e2e["l0"] = run_l0(dev, card, results, a.profile, prof_dir)
+    keep = {n: {} for n in ("11", "12", "13")}
     e2e["dm"], cluster, keys11 = run_dm(dev, card, results, a.profile,
-                                        prof_dir)
-    e2e["failover"] = run_failover(dev, card, results)
+                                        prof_dir, keep=keep["11"])
+    e2e["failover"] = run_failover(dev, card, results, keep=keep["12"])
     e2e["elastic"] = run_elastic(dev, card, results, cluster, keys11,
-                                 a.profile, prof_dir)
+                                 a.profile, prof_dir, keep=keep["13"])
     del cluster
+    torch.cuda.empty_cache()
+    e2e["ranks"] = run_ranks(dev, card, results, *keep.values())
+    del keep
     torch.cuda.empty_cache()
     e2e["train"] = run_training(dev, card, bool(a.profile), prof_dir)
     torch.cuda.empty_cache()
@@ -4650,7 +5005,7 @@ def main() -> int:
              "launches_gemma_2b", "layer_row_err_gemma_2b", "ms_tenant",
              "plain_ms_tenant", "bound_ms_tenant", "ms_w128",
              "launches_tenants", "launches_l0", "launches_dm",
-             "launches_failover", "launches_elastic",
+             "launches_failover", "launches_elastic", "launches_ranks",
              *(f"{k}_{a.replace('-', '_')}" for a in ZOO_ARCHS
                for k in ("launches", "layer_row_err")),
              *(f + k for k in ("_4k", "_gemma_4k") for f in (

@@ -35,7 +35,13 @@ issues no host sync and can be replayed as a CUDA graph:
 * a step called on its own (``access_group`` outside a driver) reads
   its word right after the step and raises there;
 * :func:`checked` wraps any callable so that every word it makes is
-  read only when it returns, the first failure raised then.
+  read only when it returns, the first failure raised then;
+* a DM pool spread over ranks (``dm/ranks.py``) shares its words after
+  every group (``dm/sharded_cache.py::_share_sync``), keeping the first
+  failure of the first failing group by shard order, as one card
+  carries it, so a violation on one rank raises the same
+  :class:`SanitizerError` on all of them and no rank is left waiting in
+  a collective.
 
 ``sanitize=False`` adds nothing to a step.  The timestamp checks assume
 the u32 clock has not wrapped.

@@ -991,11 +991,14 @@ def eager_steps():
         _EAGER.pop()
 
 
-def _scan(step, carry, xs, key):
+def _scan(step, carry, xs, key, between=None):
     """``lax.scan`` of the JAX package: ``carry, y = step(carry, x)`` for
     each x along the leading axis of the tensors ``xs``; returns the last
     carry and the ys stacked (None for an empty sequence).  ``key`` names
     the step (what it computes, apart from the shapes of its tensors).
+    ``between``, if given, runs after every step, outside the step (and
+    its graph): ``carry = between(carry, y)``, e.g. a collective across
+    processes whose result the next step reads.
 
     On the CPU this is a Python loop.  On the card the step is captured
     as a CUDA graph once per key, device and shapes, and replayed per
@@ -1019,6 +1022,8 @@ def _scan(step, carry, xs, key):
         ys = []
         for i in range(n):
             carry, y = step(carry, tuple(x[i] for x in xs))
+            if between is not None:
+                carry = between(carry, y)
             ys.append(y)
         return carry, tuple(torch.stack(p) for p in zip(*ys))
 
@@ -1033,6 +1038,11 @@ def _scan(step, carry, xs, key):
         cap.graph.replay()
         for buf, y in zip(ys, cap.ys):
             buf[i].copy_(y)
+        if between is not None:
+            new = between(_rebuild(carry, cap.leaves), cap.ys)
+            for dst, src in zip(cap.leaves, _leaves(new)):
+                if src is not dst:
+                    dst.copy_(src)
     return _rebuild(carry, [t.clone() for t in cap.leaves]), ys
 
 

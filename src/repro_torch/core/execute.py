@@ -170,7 +170,8 @@ def _execute_cluster(cluster, trace, *, plan, exec_cfg, is_write, sizes,
     (``dm_execute``) run under the handle's membership (replica fan-out,
     re-routes and dead-shard bounces all ride the routing maps).  The DM
     router packs each destination's requests itself, so ``plan`` must be
-    left unset or None."""
+    left unset or None.  A cluster spread over ranks runs it on every
+    rank, each getting the global hits and counters."""
     if plan is not _UNSET and plan is not None:
         raise ValueError(
             "execute(Cluster, ...) runs the DM router, which packs "
@@ -185,7 +186,8 @@ def _execute_cluster(cluster, trace, *, plan, exec_cfg, is_write, sizes,
         raise ValueError(
             f"trace width {L} not divisible by n_shards={cluster.n_shards}")
     warm_key = ("cluster", cluster.local, cluster.n_shards, xc.route_factor,
-                keys.shape, str(cluster.device))
+                keys.shape, str(cluster.device),
+                cluster.pool.layout())
     was_warm = warm_key in _WARM
     _sync(cluster.device)
     t0 = time.perf_counter()

@@ -12,7 +12,13 @@ routed, replicas), computed in numpy on the host, so reruns of a seeded
 failure timeline route identically.
 
 The JAX handle carries a device mesh; this one carries the card (or the
-CPU) its tensors live on.  Its resizes (``with_capacity``, ``drain_to``,
+CPU) its tensors live on and its :class:`repro_torch.dm.ranks.Pool`: the
+local pool (every shard in this process), or, for a pool spread over
+the ranks of a ``torch.distributed`` group (``Cluster.make(...,
+group=)``), this rank's share: ``dm`` is then this rank's block of
+shards, while the membership, ``stats`` and every method's results are
+global and equal on every rank, which all call the same methods with the
+same arguments.  Its resizes (``with_capacity``, ``drain_to``,
 ``with_lanes``) run the elastic runtime's ``resize`` functions.
 """
 
@@ -24,7 +30,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.types import CacheConfig, stats_sum
+from repro_torch.core.types import CacheConfig, OpStats, on_device
+from repro_torch.dm import ranks
 from repro_torch.dm.sharded_cache import (DMCache, Membership, _dm_make_impl,
                                           dm_execute)
 from repro_torch.workloads.gen import _mix32
@@ -75,22 +82,28 @@ class Cluster(NamedTuple):
     replicas: np.ndarray           # i32[global_buckets] secondary shard
     #                                per bucket; n_shards = unreplicated
     seed: int
+    pool: ranks.Pool               # this process's share of the pool
 
     @classmethod
     def make(cls, cfg: CacheConfig, n_shards: int = 1,
              lanes_per_shard: int = 8, seed: int = 0,
-             device=None) -> "Cluster":
+             device=None, group=None) -> "Cluster":
         """A sharded cache cluster on ``device`` (default: the card;
         raises without one).  ``cfg`` describes the global pool; each
         shard runs a local cache over 1/n_shards of its buckets and
-        capacity."""
+        capacity.  ``group``: a ``torch.distributed`` process group
+        (``nccl``, one card a rank, or ``gloo``) whose R ranks, R
+        dividing ``n_shards``, each hold S/R shards; every rank calls
+        this and every later method alike.  None: every shard here."""
+        device = on_device(device, "Cluster.make")
+        pool = ranks.make_pool(group, n_shards, device)
         device, dm, local = _dm_make_impl(cfg, n_shards, lanes_per_shard,
-                                          seed, device)
+                                          seed, device, pool)
         return cls(device=device, cfg=cfg, local=local, dm=dm,
                    n_shards=n_shards, lanes_per_shard=lanes_per_shard,
                    alive=(True,) * n_shards, routed=(True,) * n_shards,
                    replicas=np.full((cfg.n_buckets,), n_shards, np.int32),
-                   seed=seed)
+                   seed=seed, pool=pool)
 
     # Handle-shaped views, so ExecResult's properties work on a Cluster.
 
@@ -104,9 +117,13 @@ class Cluster(NamedTuple):
 
     @property
     def stats(self):
-        """Shard-summed counters; the per-shard ones are on
-        ``cluster.dm.stats``."""
-        return stats_sum(self.dm.stats)
+        """Counters summed over every shard (of every rank); the per-shard
+        ones of this rank's block are on ``cluster.dm.stats``.  Over
+        ranks this is an ``all_reduce``: every rank must read it, and
+        before the group is destroyed, or the readers wait (or fail) in
+        the collective."""
+        return OpStats(*self.pool.sum_(torch.stack(
+            [f.sum() for f in self.dm.stats])))
 
     def membership(self) -> Membership:
         """(alive, routed, replicas) as the routing maps: identity owners
@@ -190,14 +207,15 @@ class Cluster(NamedTuple):
         from repro_torch.elastic.resize import resize_memory
         dm, report = resize_memory(
             self.local, self.dm, new_global_capacity, drain=drain,
-            batch_per_shard=batch_per_shard, max_steps=max_steps)
+            batch_per_shard=batch_per_shard, max_steps=max_steps,
+            pool=self.pool)
         return self._replace(dm=dm), report
 
     def with_tenant_budgets(self, budgets) -> "Cluster":
         """Rewrite the per-tenant budgets (global units, split exactly)."""
         from repro_torch.elastic.resize import set_tenant_budgets
         return self._replace(dm=set_tenant_budgets(
-            self.dm, budgets, self.n_shards))
+            self.dm, budgets, self.n_shards, pool=self.pool))
 
     def with_lanes(self, new_lanes_per_shard: int):
         """Change the client lanes per shard (``resize_lanes``; new lanes
@@ -206,21 +224,23 @@ class Cluster(NamedTuple):
         captures one new graph."""
         from repro_torch.elastic.resize import resize_lanes
         dm, report = resize_lanes(self.local, self.dm, new_lanes_per_shard,
-                                  seed=self.seed + 1)
+                                  seed=self.seed + 1, pool=self.pool)
         return self._replace(dm=dm,
                              lanes_per_shard=new_lanes_per_shard), report
 
     def inject_failure(self, k: int) -> "Cluster":
-        """Ground-truth loss of shard k: its state is wiped and it stops
-        serving; the router still believes it up until ``mark_failed``
-        (the detection gap the failover run measures)."""
+        """Ground-truth loss of shard k: its state is wiped (by the rank
+        that holds it) and it stops serving; the router still believes
+        it up until ``mark_failed`` (the detection gap the failover run
+        measures)."""
         from repro_torch.elastic.resize import fail_wipe_shard
         if not (0 <= k < self.n_shards):
             raise ValueError(f"shard {k} out of range")
         alive = list(self.alive)
         alive[k] = False
-        return self._replace(dm=fail_wipe_shard(self.local, self.dm, k),
-                             alive=tuple(alive))
+        return self._replace(
+            dm=fail_wipe_shard(self.local, self.dm, k, pool=self.pool),
+            alive=tuple(alive))
 
     def mark_failed(self, k: int) -> "Cluster":
         """Detection: stop routing to shard k."""
@@ -245,7 +265,8 @@ class Cluster(NamedTuple):
         c = self._replace(alive=tuple(alive), routed=tuple(routed))
         if not rewarm:
             return c, ResizeReport(0, 0, 0, 0)
-        dm, report = rewarm_shard(c.local, c.dm, k, max_objects=max_objects)
+        dm, report = rewarm_shard(c.local, c.dm, k, max_objects=max_objects,
+                                  pool=c.pool)
         return c._replace(dm=dm), report
 
     def execute(self, keys, is_write=None, obj_size=None, tenant=None,
@@ -260,7 +281,8 @@ class Cluster(NamedTuple):
             self.local, self.dm, _as_tensor(keys, dev),
             _as_tensor(is_write, dev, torch.bool),
             _as_tensor(obj_size, dev), _as_tensor(tenant, dev),
-            route_factor=route_factor, member=self.membership())
+            route_factor=route_factor, member=self.membership(),
+            pool=self.pool)
         return self._replace(dm=dm), hits
 
 

@@ -19,6 +19,12 @@ An ``Autoscaler``, a ``TenantArbiter``, a ``WidthController`` and a
 ``HealthMonitor`` may close the loop at every window boundary, as in the
 JAX package; the window dicts and the event log carry the same fields
 and values.
+
+With ``group=``, the pool spreads over the ranks of a
+``torch.distributed`` group (``Cluster.make``), every rank running the
+same call: its window reads are sums over every rank, so the controllers
+see the same numbers on every rank and take the same decisions, and a
+``WidthController`` learns from rank 0's chunk walls.
 """
 
 from __future__ import annotations
@@ -108,9 +114,15 @@ def _as_sized_stream(arg, default_sizes=None, default_tenants=None):
     return keys, sizes, tenants
 
 
-def _host_stats(stats: OpStats) -> OpStats:
+def _host_sums(x: torch.Tensor, pool) -> list:
+    """Integer sums over this rank's shards, summed over the ranks, as
+    host integers (one read)."""
+    return pool.sum_(x).tolist()
+
+
+def _host_stats(stats: OpStats, pool) -> OpStats:
     """The shard-summed counters as host integers (one read)."""
-    return OpStats(*torch.stack([f.sum() for f in stats]).tolist())
+    return OpStats(*_host_sums(torch.stack([f.sum() for f in stats]), pool))
 
 
 def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
@@ -126,7 +138,7 @@ def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
                  width_controller: Optional[WidthController] = None,
                  health: Optional[HealthMonitor] = None,
                  replicate_hot: int = 0, replica_ema: float = 0.5,
-                 device=None) -> ScenarioResult:
+                 device=None, group=None) -> ScenarioResult:
     """Run a [T, lanes] trace through the DM cache under an event stream.
 
     Args:
@@ -160,8 +172,13 @@ def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
         ``replicate_hot`` buckets at every window boundary.
       device: where the cluster lives (default: the card; raises
         without one), as ``Cluster.make``.
+      group: a ``torch.distributed`` group whose ranks hold the shards,
+        as ``Cluster.make``; every rank calls with the same arguments
+        and gets the same windows and events.
     """
-    cluster = Cluster.make(cfg, n_shards, lanes_per_shard, device=device)
+    cluster = Cluster.make(cfg, n_shards, lanes_per_shard, device=device,
+                           group=group)
+    pool = cluster.pool
     local = cluster.local
     dm = cluster.dm
     dev = cluster.device
@@ -186,7 +203,7 @@ def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
     win_t0 = 0
     win_mig = win_drain = 0
     win_events: list[str] = []
-    last_stats = _host_stats(dm.stats)
+    last_stats = _host_stats(dm.stats, pool)
     # Per-tenant window counters, accumulated on the host from the routed
     # hit masks (router-dropped requests count as misses here).
     t_ops = np.zeros(n_ten, np.int64)
@@ -206,13 +223,14 @@ def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
             capacity = _round_capacity(int(arg), cfg, n_shards)
             dm, report = resize_memory(
                 local, dm, capacity, batch_per_shard=drain_batch,
-                max_steps=drain_max_steps)
+                max_steps=drain_max_steps, pool=pool)
         elif name == "set_lanes":
             lanes = max(1, int(arg))
-            dm, report = resize_lanes(local, dm, lanes, seed=seed + 1 + t)
+            dm, report = resize_lanes(local, dm, lanes, seed=seed + 1 + t,
+                                      pool=pool)
         elif name == "set_tenant_budgets":
             tenant_budgets = [int(b) for b in arg]
-            dm = set_tenant_budgets(dm, tenant_budgets, n_shards)
+            dm = set_tenant_budgets(dm, tenant_budgets, n_shards, pool=pool)
         elif name == "switch_workload":
             stream, size_stream, ten_stream = _as_sized_stream(
                 workloads[arg] if isinstance(arg, str) else arg)
@@ -275,9 +293,14 @@ def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
         warm = (n, L) in run_shapes
         tc0 = time.perf_counter()
         dm, hits = dm_execute(local, dm, put(step_keys), obj_size=put(step_sz),
-                              tenant=put(step_ten), member=member)
+                              tenant=put(step_ten), member=member, pool=pool)
         hn = hits.cpu().numpy()              # host sync: bounds the wall
         wall = time.perf_counter() - tc0
+        if width_controller is not None:
+            # Every rank's controller takes rank 0's wall, so all of them
+            # choose the same chunks.
+            wall = float(pool.broadcast(
+                torch.tensor(wall, dtype=torch.float64, device=dev), 0))
         if replicate_hot > 0:
             # Per-bucket offered load for this chunk (the router's hash),
             # accumulated into the window's counts.
@@ -304,14 +327,16 @@ def run_scenario(cfg: CacheConfig, keys, timeline: Sequence[Tuple[int, Event]],
             # Maintenance sweep: hold the byte budget between events (the
             # batched sampler alone drifts at low live density).
             dm, enforced = enforce_budget(local, dm,
-                                          batch_per_shard=drain_batch)
-            total = _host_stats(dm.stats)
+                                          batch_per_shard=drain_batch,
+                                          pool=pool)
+            total = _host_stats(dm.stats, pool)
             d = stats_delta(total, last_stats)
             last_stats = total
             ops = float(d.gets + d.sets)
-            occ = torch.cat([dm.state.n_cached.sum()[None],
-                             dm.state.bytes_cached.sum()[None],
-                             dm.state.tenant_bytes.sum(dim=0)]).tolist()
+            occ = _host_sums(torch.cat([dm.state.n_cached.sum()[None],
+                                        dm.state.bytes_cached.sum()[None],
+                                        dm.state.tenant_bytes.sum(dim=0)]),
+                             pool)
             n_cached, blocks, ten_blocks = occ[0], occ[1], occ[2:]
             tput = model.throughput(L, d, hit_rate=1.0) / 1e6 if ops else 0.0
             m = WindowMetrics.from_stats(

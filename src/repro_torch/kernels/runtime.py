@@ -6,7 +6,10 @@ into one shared library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, into ``_build/`` beside this module (listed
 in ``.gitignore``), keyed by a hash of the sources, the shared device
 code they include (``csrc/*.cuh``) and the flags, so an unchanged
-checkout builds once.  No ``--use_fast_math``: it would turn
+checkout builds once.  It holds a file lock (:func:`build_lock`), so
+processes that start together (the ranks of a DM pool, a user's
+``torchrun``) build one at a time and the later ones load what the first
+built.  No ``--use_fast_math``: it would turn
 ``exp2f`` and division into approximations, and the f32 priorities must
 round as the plain PyTorch versions' do.
 
@@ -23,7 +26,9 @@ compiler or a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -96,6 +101,21 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path = BUILD_DIR):
+    """Hold the exclusive lock of ``build_dir`` (an ``flock`` of its
+    ``.lock`` file) for a block: one process at a time builds there.  The
+    kernel drops the lock when its holder exits, so a build that was cut
+    off leaves no stale lock behind."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile the sources into the keyed shared library (if missing)
     and return its path."""
@@ -103,7 +123,13 @@ def build() -> Path:
     lib = BUILD_DIR / f"libditto_kernels_{_digest(srcs)}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock():
+        if not lib.exists():            # another process built it meanwhile
+            _compile(srcs, lib)
+    return lib
+
+
+def _compile(srcs, lib: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
@@ -122,7 +148,6 @@ def build() -> Path:
         subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
                         *map(str, objs)], check=True, capture_output=True)
         os.replace(tmp_lib, lib)
-    return lib
 
 
 def lib() -> ctypes.CDLL:

@@ -1029,11 +1029,11 @@ def _dm_trace(n_groups, G=4, seed=3):
             torch.as_tensor((keys % 2).astype(np.int64)))
 
 
-def _dm_run(dev, cfg, trace):
+def _dm_run(dev, cfg, trace, group=None):
     """Two segments with a replica election, a failure, its detection and
-    a rewarmed recovery between them."""
+    a rewarmed recovery between them (``group``: over its ranks)."""
     from repro_torch.dm import Cluster
-    cl = Cluster.make(cfg, DM_S, DM_LANES, 5, device=dev)
+    cl = Cluster.make(cfg, DM_S, DM_LANES, 5, device=dev, group=group)
     keys, wr, sz, ten = (x.to(dev) for x in trace)
     cl, h1 = cl.execute(keys[:6], wr[:6], sz[:6], ten[:6])
     loads = np.bincount(gen._mix32(trace[0][:6].numpy()).ravel()
@@ -1082,6 +1082,98 @@ def test_dm_trace_on_the_card_matches_the_cpu(cuda):
     assert int(st.evictions) > 0 and int(st.replica_writes) > 0
     assert int(st.gets + st.sets + st.route_drops) == int(
         (trace[0] != 0).sum())
+
+
+def _dm_ranks_equal(one, got) -> None:
+    """A rank's run bit-equal to its block of the one-card run: every
+    leaf, the hits and the rewarm's report."""
+    assert torch.equal(got[1], one[1])
+    assert tuple(got[2]) == tuple(one[2]) and got[2].drained_objects > 0
+    for a, b in zip(t_cache._leaves(got[0].pool.block(one[0].dm)),
+                    t_cache._leaves(got[0].dm)):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert [int(x) for x in got[0].stats] == [int(x) for x in one[0].stats]
+
+
+@pytest.mark.cuda
+def test_dm_ranks_one_rank_nccl_equals_one_card(cuda):
+    """The pool over a one-rank NCCL group on the card: every leaf, the
+    hits and the rewarm bit-equal to the one-card path, S launches of
+    each cache kernel a DM step as there."""
+    import torch.distributed as dist
+    from repro_torch.core import cache as core_cache
+    from repro_torch.launch import mesh
+    trace = _dm_trace(20)
+    one = _dm_run(cuda, _dm_cfg(), trace)
+    torch.cuda.set_device(cuda)
+    mesh._group("nccl", 1, dist.HashStore)
+    try:
+        ops.reset_launches()
+        n_graphs = len(core_cache._GRAPHS)
+        got = _dm_run(cuda, _dm_cfg(), trace, group=dist.group.WORLD)
+        captured = len(core_cache._GRAPHS) - n_graphs
+        _dm_ranks_equal(one, got)            # its global stats: the group
+    finally:
+        mesh.teardown()
+    want = DM_S * (20 + captured)
+    assert ops.launches() == {k: want * CACHE_KERNELS.get(k, 0)
+                              for k in ops.launches()}
+
+
+def _dm_ranks_worker(rank: int, world: int, store: str) -> None:
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        trace = _dm_trace(20)
+        one = _dm_run(dev, _dm_cfg(), trace)
+        _dm_ranks_equal(one, _dm_run(dev, _dm_cfg(), trace,
+                                     group=dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dm_ranks_two_gloo_processes_on_one_card(cuda, tmp_path):
+    """Two processes on one card over gloo, two shards each: each rank's
+    block bit-equal to the one-card run it makes beside it."""
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import runtime
+    runtime.lib()                         # one build before the ranks
+    mp.start_processes(_dm_ranks_worker, args=(2, str(tmp_path / "store")),
+                       nprocs=2, join=True, start_method="spawn")
+
+
+def _dm_ranks_nccl_worker(rank: int, world: int, store: str) -> None:
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        trace = _dm_trace(20)
+        one = _dm_run(dev, _dm_cfg(), trace)
+        _dm_ranks_equal(one, _dm_run(dev, _dm_cfg(), trace,
+                                     group=dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dm_ranks_one_nccl_rank_a_card(cuda, tmp_path):
+    """One NCCL rank a card, on 2 or 4 cards: each rank's block
+    bit-equal to the one-card run it makes on its own card."""
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import runtime
+    world = max((r for r in (2, 4) if r <= torch.cuda.device_count()),
+                default=0)
+    if not world:
+        pytest.skip("needs two or more cards: one NCCL rank a card")
+    runtime.lib()
+    mp.start_processes(_dm_ranks_nccl_worker,
+                       args=(world, str(tmp_path / "store")), nprocs=world,
+                       join=True, start_method="spawn")
 
 
 @pytest.mark.cuda

@@ -28,7 +28,9 @@ The CUDA kernels themselves build and run only on the card:
 ``tests/test_torch_cuda.py`` compares them with the plain versions there.
 """
 
+import os
 import re
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -1112,3 +1114,44 @@ def test_each_cuda_source_carries_its_note_and_entry_point():
     assert "--use_fast_math" not in runtime.FLAGS
     assert re.search(r"compute_90a,code=sm_90a", " ".join(runtime.ARCH))
     assert Path(runtime.BUILD_DIR).name == "_build"
+
+
+_LOCK_CHILD = r'''
+import os, sys, time
+from pathlib import Path
+from repro_torch.kernels import runtime
+build_dir, log = Path(sys.argv[1]), Path(sys.argv[2])
+Path(sys.argv[3]).touch()                  # ready
+while not Path(sys.argv[4]).exists():      # go: both at once
+    time.sleep(0.005)
+with runtime.build_lock(build_dir):
+    with open(log, "a") as f:
+        f.write(f"start {os.getpid()}\n")
+    time.sleep(0.4)
+    with open(log, "a") as f:
+        f.write(f"end {os.getpid()}\n")
+'''
+
+
+def test_build_lock_keeps_two_builders_apart(tmp_path):
+    """Two processes that reach the builder's lock at once hold it one
+    after the other: the log holds one builder's start and end, then the
+    other's, never interleaved."""
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(Path(runtime.__file__).parents[2]))
+    log, go = tmp_path / "log", tmp_path / "go"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LOCK_CHILD, str(tmp_path / "_build"),
+         str(log), str(tmp_path / f"ready{i}"), str(go)], env=env)
+        for i in range(2)]
+    deadline = time.time() + 60
+    while not all((tmp_path / f"ready{i}").exists() for i in range(2)):
+        assert time.time() < deadline, "the builders did not start"
+        time.sleep(0.01)
+    go.touch()
+    assert [p.wait(timeout=60) for p in procs] == [0, 0]
+    lines = [ln.split() for ln in log.read_text().splitlines()]
+    assert [w for w, _ in lines] == ["start", "end", "start", "end"]
+    assert lines[0][1] == lines[1][1] != lines[2][1] == lines[3][1]
+    assert (tmp_path / "_build" / ".lock").exists()
