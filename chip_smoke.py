@@ -624,7 +624,8 @@ def apply_groups(rng, dev, n: int, B: int, keys, ts, u32, K: int = 5):
 
 # The float sums of the step, the weight sync and the drain, in XLA's CPU
 # order (f32 adds one at a time): held against a host f32 loop.
-REDUCE_ROWS = (1, 2, 4, 7, 31, 32, 33, 40, 64, 65, 100, 128)
+REDUCE_ROWS = (1, 2, 4, 7, 31, 32, 33, 40, 64, 65, 100, 128, 1025, 2048,
+               5000)
 
 
 def check_reductions(dev) -> dict:
@@ -632,8 +633,9 @@ def check_reductions(dev) -> dict:
     (``_seqsum``, ``_xla_sum0``, ``_seqsum_last``, ``_seqcumsum_last``,
     ``_expert_cdf``, ``apply_penalties``' normalisation and the drain's
     ``_tenant_mean``) against a host f32 loop in numpy on the same
-    seeded inputs, at 1 to 128 rows and E = 1 to 8, with 1 and 3 columns
-    (a lone column takes the widened path): every output bit-equal."""
+    seeded inputs, at 1 to 5,000 rows and E = 1 to 8, with 1 and 3
+    columns (a lone column takes the widened path): every output
+    bit-equal (past 1,024 rows XLA's row ranges nest)."""
     import numpy as np
     import torch
     from repro_torch.core import cache
@@ -647,9 +649,14 @@ def check_reductions(dev) -> dict:
             acc = (acc + row).astype(f32)
         return acc
 
-    def xla0(x):
-        return seq(np.stack([seq(x[a:b]) for a, b in cache._xla_chunks(
-            x.shape[0])]))
+    def xla0(x):                             # XLA's CPU reduce, written
+        n = x.shape[0]                       # apart from cache._xla_chunks
+        if n <= 32:
+            return seq(x)
+        k = (n + 31) // 32                   # ranges: the middle ones of
+        first = (n - 32 * (k - 2) + 1) // 2  # 32, the first and last even
+        cuts = [0] + list(range(first, first + 32 * (k - 2) + 1, 32)) + [n]
+        return xla0(np.stack([seq(x[a:b]) for a, b in zip(cuts, cuts[1:])]))
 
     def cum_last(x):
         out = x.copy()

@@ -14,6 +14,13 @@ the clock, PRNG keys) is an ``int64`` tensor holding a value in
 as well; f32 columns stay f32.  Narrowing the storage to 4 bytes is
 left for later work.
 
+**The counters are int64 by design.**  The JAX package's are i32 when
+x64 is off (i64 under x64), and its byte counters wrap past 2^31 on
+long sized traces.  The port's stay right there: its op counters equal
+JAX's exactly and its byte counters (``rdma_read_bytes``,
+``rdma_write_bytes``, ``hit_bytes``, ``miss_bytes``) equal JAX's modulo
+2^32 (``tests/test_torch_counters.py``).
+
 ``state_from_numpy`` / ``state_to_numpy`` (and the ``clients_*`` /
 ``stats_*`` / ``dm_*`` pairs) carry the JAX package's pytrees, as numpy arrays,
 into this package's tensors on a given device and back, with the JAX
@@ -349,9 +356,11 @@ def hit_ratio(stats: OpStats) -> float:
 
 
 def byte_hit_ratio(stats: OpStats) -> float:
-    """Bytes served from the cache over bytes requested; 0 where a byte
-    counter has wrapped negative, as the JAX package's
-    ``byte_hit_ratio``.  A host read."""
+    """Bytes served from the cache over bytes requested.  The port's
+    int64 counters do not wrap, so past 2^31 bytes this reads the true
+    ratio where the JAX package's i32 counters wrap and its
+    ``byte_hit_ratio`` reads 0.  A counter that is negative (one carried
+    in from JAX after it wrapped) reads 0, as there.  A host read."""
     hit_b, miss_b = float(stats.hit_bytes), float(stats.miss_bytes)
     if hit_b < 0 or miss_b < 0:
         return 0.0

@@ -21,29 +21,50 @@ The cells ``cell_supported`` refuses are recorded ``skipped`` with its
 reason; a cell that fails is recorded ``failed`` with its error, and
 ``main`` exits non-zero.
 
+A train cell of a config with sLSTM blocks is fitted in T, not run at
+its length: the sLSTM steps its tokens one at a time
+(``models/xlstm.py::slstm_scan``), about 3 s a token on fake tensors on
+the single-pod mesh, so xlstm-350m's ``train_4k`` would take hours.
+Every layer's cost is a polynomial of degree at most 2 in T while the
+mLSTM's chunk (256) divides T: linear in the sLSTM's steps and the
+mLSTM's chunks, plus the op-granularity bytes of the eager backward,
+where each of the T steps' ``select`` (and each chunk's ``slice``) of a
+[B, T, ...] tensor gets a full-size gradient that is then accumulated.
+So the cell runs at ``FIT_LENGTHS`` (same global batch, microbatches and
+remat), each run in a process of its own, all at once, and each number
+(memory, FLOPs, bytes, collectives, kernel calls) is the quadratic
+through the three at the cell's T; the roofline row follows from those.
+The record names the derived fields and the lengths under ``derived``.
+``--check-fit T`` holds the fit against a full run at T.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single|multi|both] [--time-limit S]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-350m --shape train_4k --mesh single --check-fit 1024
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
+import multiprocessing
 import os
 import time
 import traceback
+from fractions import Fraction
 
 import torch
 
 from repro_torch.configs.registry import (ARCHS, SHAPES, cell_supported,
                                           get_arch, get_shape, input_specs)
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.op_cost import OpCounter
+from repro_torch.launch.mesh import (_fake_mesh, make_production_mesh,
+                                     teardown)
+from repro_torch.launch.op_cost import CostReport, OpCounter
 from repro_torch.models import sharding as sh
 from repro_torch.models.model import (ModelConfig, abstract_params,
                                       active_param_count, build_param_specs,
@@ -242,9 +263,99 @@ def run_step(builder, cfg, shape, mesh, device):
     return counter, mem, meta
 
 
+def _numbers(counter, mem) -> dict:
+    """The numbers of one run of a step: its memory record and its
+    counter's figures."""
+    rep = counter.report()
+    return dict(mem, coll_counts=rep.coll_counts,
+                kernel_calls={k: v[0] for k, v in counter.by_op.items()
+                              if k.startswith("ditto.")},
+                flops_per_dev=rep.flops, bytes_per_dev=rep.bytes,
+                fused_bytes_per_dev=rep.fused_bytes,
+                coll_bytes_per_dev=rep.coll_bytes,
+                coll_breakdown=rep.coll_breakdown)
+
+
+# The lengths a fitted cell runs at (see the module docstring): evenly
+# spaced, so the quadratic's weights at a multiple of the spacing are
+# integers and integer fields stay exact.
+FIT_LENGTHS = (256, 512, 768)
+
+
+def fits_in_t(cfg: ModelConfig, shape, lengths=FIT_LENGTHS) -> bool:
+    """Whether ``run_cell`` fits this cell in T at ``lengths`` (None: it
+    never does): a train cell, longer than the lengths, of a config with
+    sLSTM blocks."""
+    kinds = set(cfg.block_pattern) | set(cfg.remainder)
+    return (lengths is not None and shape.kind == "train"
+            and "slstm" in kinds and shape.seq_len > max(lengths))
+
+
+def _run_point(builder, cfg, shape, dims: dict, device_type: str):
+    """(numbers, meta) of one run of ``builder``'s step at ``shape`` on a
+    fake mesh ``dims`` (axis name -> size) of its own: the body of a
+    fit's worker process."""
+    try:
+        mesh = _fake_mesh(tuple(dims.values()), tuple(dims), device_type)
+        counter, mem, meta = run_step(builder, cfg, shape, mesh, device_type)
+        return _numbers(counter, mem), meta
+    finally:
+        teardown()
+
+
+def _run_points(builder, cfg, shape, mesh, device_type, lengths) -> list:
+    """``_run_point`` at each of ``lengths``, each in a process of its
+    own, all at once (a time limit's exception ends them)."""
+    dims = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    jobs = [(builder, cfg, dataclasses.replace(shape, seq_len=t), dims,
+             device_type) for t in lengths]
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        return pool.starmap(_run_point, jobs)
+
+
+def _fit(points: list, lengths, t: int):
+    """The quadratic in T through ``points`` (nested dicts of numbers, one
+    a length) at ``t``, number by number, in exact rationals: an int
+    stays an int where the result is whole."""
+    ws = [Fraction(math.prod(t - b for b in lengths if b != a),
+                   math.prod(a - b for b in lengths if b != a))
+          for a in lengths]
+
+    def fit(vals):
+        if isinstance(vals[0], dict):
+            return {k: fit([v[k] for v in vals]) for k in vals[0]}
+        x = sum(w * Fraction(v) for w, v in zip(ws, vals))
+        whole = all(isinstance(v, int) for v in vals) and x.denominator == 1
+        return int(x) if whole else float(x)
+
+    return fit(points)
+
+
+def _record(rec: dict, cfg, shape, n_dev: int, nums: dict, meta: dict,
+            run_s: float) -> dict:
+    """``rec`` completed as an ``ok`` cell from a step's numbers."""
+    d_tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                     else 1)
+    n_active = active_param_count(cfg)
+    model_flops = (6.0 if shape.kind == "train" else 2.0) * n_active * d_tokens
+    roof = rl.analyze(CostReport(
+        nums["flops_per_dev"], nums["bytes_per_dev"],
+        nums["fused_bytes_per_dev"], nums["coll_bytes_per_dev"],
+        nums["coll_breakdown"], nums["coll_counts"]), n_dev, model_flops)
+    rec.update(
+        status="ok", run_s=round(run_s, 1), n_devices=n_dev,
+        params=param_count(cfg), active_params=n_active,
+        **{k: nums[k] for k in ("arg_bytes_per_dev", "out_bytes_per_dev",
+                                "temp_bytes_per_dev", "alias_bytes_per_dev",
+                                "peak_hbm_per_dev", "coll_counts",
+                                "kernel_calls")},
+        **meta, **roof.row())
+    return rec
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              save: bool = True, extra_tag: str = "", device_type: str = "cpu",
-             step_override=None):
+             step_override=None, fit_lengths=FIT_LENGTHS):
     cfg = get_arch(arch)
     shape = get_shape(shape_name)
     ok, why = cell_supported(cfg, shape)
@@ -259,24 +370,51 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                                 device_type=device_type)
     builder = step_override or BUILDERS[shape.kind]
     t0 = time.time()
-    counter, mem, meta = run_step(builder, cfg, shape, mesh, device_type)
-    dt = time.time() - t0
-    n_dev = mesh.size()
-    d_tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
-                                     else 1)
-    n_active = active_param_count(cfg)
-    model_flops = (6.0 if shape.kind == "train" else 2.0) * n_active * d_tokens
-    roof = rl.analyze(counter.report(), n_dev, model_flops)
-    rec.update(
-        status="ok", run_s=round(dt, 1), n_devices=n_dev,
-        params=param_count(cfg), active_params=n_active, **mem,
-        coll_counts=roof.coll_breakdown.get("_counts"),
-        kernel_calls={k: v[0] for k, v in counter.by_op.items()
-                      if k.startswith("ditto.")},
-        **meta, **roof.row())
+    derived = None
+    if fits_in_t(cfg, shape, fit_lengths):
+        pts = _run_points(builder, cfg, shape, mesh, device_type,
+                          fit_lengths)
+        nums = _fit([p for p, _ in pts], fit_lengths, shape.seq_len)
+        meta = pts[0][1]
+        derived = {"method": "quadratic in T through runs at seq_len",
+                   "seq_len": list(fit_lengths),
+                   "fields": [k for k in nums if k != "coll_breakdown"]}
+    else:
+        counter, mem, meta = run_step(builder, cfg, shape, mesh, device_type)
+        nums = _numbers(counter, mem)
+    _record(rec, cfg, shape, mesh.size(), nums, meta, time.time() - t0)
+    if derived:
+        rec["derived"] = derived
     if save:
         _save(rec, extra_tag)
     return rec
+
+
+def check_fit(arch: str, shape_name: str, mesh_kind: str, at: int, *,
+              device_type: str = "cpu", fit_lengths=FIT_LENGTHS) -> dict:
+    """The fit held against a full run: the cell's numbers at T = ``at``
+    derived from ``fit_lengths`` and run at ``at``, all in one pool.
+    Returns {field: [derived, full, relative error]}, nested fields'
+    names joined with '.'."""
+    cfg, shape = get_arch(arch), get_shape(shape_name)
+    shape = dataclasses.replace(shape, seq_len=at)
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"),
+                                device_type=device_type)
+    pts = _run_points(BUILDERS[shape.kind], cfg, shape, mesh, device_type,
+                      (*fit_lengths, at))
+    got = _fit([p for p, _ in pts[:-1]], fit_lengths, at)
+    out = {}
+
+    def walk(name, a, b):
+        if isinstance(a, dict):
+            for k in a:
+                walk(f"{name}.{k}", a[k], b[k])
+        else:
+            out[name] = [a, b, abs(a - b) / abs(b) if b else float(a != b)]
+
+    for k in got:
+        walk(k, got[k], pts[-1][0][k])
+    return out
 
 
 def _save(rec, extra_tag=""):
@@ -393,9 +531,30 @@ def main(argv=None):
     ap.add_argument("--time-limit", type=int, default=0,
                     help="record a cell that runs longer than this many "
                          "seconds as failed (default: no limit)")
+    ap.add_argument("--check-fit", type=int, metavar="T",
+                    help="hold the fit of a cell fitted in T against a "
+                         "full run at length T (one mesh); print each "
+                         "field's relative error")
     args = ap.parse_args(argv)
     if args.table:
         print(table())
+        return
+    if args.check_fit:
+        if not (args.arch and args.shape) or args.mesh == "both":
+            ap.error("--check-fit takes --arch, --shape and one --mesh")
+        t0 = time.time()
+        try:
+            errs = check_fit(args.arch, args.shape, args.mesh, args.check_fit)
+        finally:
+            teardown()
+        for k, (got, want, err) in errs.items():
+            print(f"{k:36s} {got:>22} {want:>22} {err:.3e}")
+        worst = max(errs, key=lambda k: errs[k][2])
+        print(json.dumps({"arch": args.arch, "shape": args.shape,
+                          "mesh": args.mesh, "at": args.check_fit,
+                          "fit_lengths": list(FIT_LENGTHS),
+                          "run_s": round(time.time() - t0, 1),
+                          "worst": worst, "fields": errs}))
         return
 
     meshes = {"single": ["single"], "multi": ["multi"],
@@ -407,7 +566,6 @@ def main(argv=None):
     try:
         recs = run_cells(cells, meshes, time_limit=args.time_limit)
     finally:
-        from repro_torch.launch.mesh import teardown
         teardown()
     failures = sum(r["status"] == "failed" for r in recs)
     if failures:

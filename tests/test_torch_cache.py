@@ -120,6 +120,25 @@ def test_execute_matches_jax(workload, plan, backend):
     assert int(tr.stats.regrets) > 0 and int(tr.stats.fc_flushes) > 0
 
 
+def test_weight_sync_over_1056_lanes_matches_jax():
+    """1,056 lanes, a weight sync every round: past 1,024 lanes XLA sums
+    the lanes' penalties in row ranges and those ranges' sums in ranges
+    again (``cache._xla_sum0``).  Hits and integer state bit-equal to the
+    JAX package, the weights within 16 ulp (the one-level rule drifts
+    past 16 ulp on this trace)."""
+    lanes = 1056
+    kw = dict(n_buckets=64, assoc=4, capacity=96, sync_period=1,
+              experts=("lru", "lfu", "hyperbolic"), backend="reference")
+    cfg_j, cfg_t = j_types.CacheConfig(**kw), t_types.CacheConfig(**kw)
+    keys, wr = j_gen.ycsb("A", 40 * lanes, n_keys=400, seed=5)
+    keys, wr = j_gen.interleave(keys, lanes, wr)
+    jr = j_execute(j_make(cfg_j, lanes, 0), keys, plan=None, is_write=wr)
+    tr = t_execute(t_make(cfg_t, lanes, 0, device="cpu"), keys, plan=None,
+                   is_write=wr)
+    _assert_same(tr, jr, weight_ulp=16)
+    assert int(tr.stats.regrets) > 0 and int(tr.stats.evictions) > 0
+
+
 @pytest.mark.parametrize("backend", ["reference", "fused"])
 def test_execute_with_a_wide_sample_matches_jax(backend):
     """``n_samples=33`` (a sample wider than one warp's 32 lanes, window

@@ -12,7 +12,9 @@ package's.
   ``ok`` with its roofline row;
 * the cross entropy's live bytes on a (pod, data, model) mesh equal
   those on a (data, model) mesh with the same rows a device (the pod
-  axis folds into the data axes, nothing is gathered over it).
+  axis folds into the data axes, nothing is gathered over it);
+* a train cell with sLSTM blocks, fitted in T from three shorter runs,
+  equals a full run at its length within 1% in every derived field.
 """
 
 import dataclasses
@@ -219,3 +221,65 @@ def test_xent_peak_on_a_pod_mesh_equals_the_data_mesh():
             M.teardown()
         peaks.append(c.peak)
     assert peaks[0] == peaks[1], peaks
+
+
+def test_only_slstm_train_cells_are_fitted_in_t():
+    """The fit is chosen by block kind: xlstm-350m's train cell (under any
+    name), no other arch's, and none of its other shapes."""
+    train = t_reg.get_shape("train_4k")
+    fitted = {a for a in t_reg.ARCHS
+              if dryrun.fits_in_t(t_reg.get_arch(a), train)}
+    assert fitted == {"xlstm-350m"}
+    cfg = dataclasses.replace(t_reg.get_arch("xlstm-350m"), name="renamed")
+    assert dryrun.fits_in_t(cfg, train)
+    assert not dryrun.fits_in_t(cfg, train, None)
+    assert not any(dryrun.fits_in_t(cfg, t_reg.get_shape(s))
+                   for s in t_reg.SHAPES if s != "train_4k")
+
+
+FIT_SHAPE = dict(seq_len=64, global_batch=2)
+FIT_LENGTHS = (16, 32, 48)
+
+
+def test_slstm_train_cell_fitted_in_t_equals_a_full_run(monkeypatch):
+    """xlstm-350m's smoke config (an sLSTM block among mLSTM ones) as a
+    train cell at T = 64 on a (data=2, model=2) mesh: fitted from runs at
+    T = 16, 32 and 48 in worker processes, every derived field and the
+    roofline row within 1% of a full run at T = 64 (one mLSTM chunk at
+    every length here, as the production fit's lengths are all multiples
+    of the chunk)."""
+    from repro_torch.launch import mesh as M
+    cfg = t_reg.smoke_config(t_reg.get_arch("xlstm-350m"))
+    assert "slstm" in cfg.block_pattern
+    shape = dataclasses.replace(t_reg.get_shape("train_4k"), **FIT_SHAPE)
+    monkeypatch.setattr(dryrun, "get_arch", lambda name: cfg)
+    monkeypatch.setattr(dryrun, "get_shape", lambda name: shape)
+    try:
+        mesh = M.make_host_mesh(model=2, data=2)
+        monkeypatch.setattr(dryrun, "make_production_mesh",
+                            lambda **kw: mesh)
+        fit = dryrun.run_cell("xlstm-350m", "train_4k", "single",
+                              save=False, fit_lengths=FIT_LENGTHS)
+        full = dryrun.run_cell("xlstm-350m", "train_4k", "single",
+                               save=False, fit_lengths=None)
+    finally:
+        M.teardown()
+    assert fit["status"] == full["status"] == "ok" and "derived" not in full
+    assert fit["derived"]["seq_len"] == list(FIT_LENGTHS)
+    assert set(fit) - {"derived", "run_s"} == set(full) - {"run_s"}
+    fields = fit["derived"]["fields"]
+    assert {"peak_hbm_per_dev", "flops_per_dev", "bytes_per_dev",
+            "coll_counts"} <= set(fields)
+    assert fit["flops_per_dev"] > 0 and fit["coll_bytes_per_dev"] > 0
+
+    def close(a, b, what):
+        if isinstance(a, dict):
+            for k in a:
+                close(a[k], b[k], f"{what}.{k}")
+        elif not isinstance(a, str):
+            assert abs(a - b) <= 0.01 * abs(b), (what, a, b)
+        else:
+            assert a == b, what
+
+    for k in set(full) - {"run_s", "arch", "shape", "mesh", "status"}:
+        close(fit[k], full[k], k)

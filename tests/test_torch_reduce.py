@@ -3,12 +3,13 @@ they mirror, on the CPU.
 
 XLA on the CPU adds f32 one element at a time: a scatter-add in request
 order, ``sum`` and ``cumsum`` over the last axis in index order, and a
-reduce over a major axis in fixed row ranges (``cache._xla_chunks``).
+reduce over a major axis in fixed row ranges (``cache._xla_chunks``),
+and past 1,024 rows the range sums in ranges again.
 PyTorch's CPU scan adds in f64 and its sums are pairwise, so the port
 adds explicitly.  These sums pick the eviction expert (the cdf), the
 drain's dominant expert (the tenant mean) and the synced weights, so
-each is held bit-equal here, on seeded f32 inputs at 1, 4, 31, 32, 33,
-64 and 128 rows and E = 1 to 8.
+each is held bit-equal here, on seeded f32 inputs at 1 to 33,000 rows
+(past 1,024 the major-axis reduce nests) and E = 1 to 8.
 """
 
 import jax
@@ -21,7 +22,7 @@ from repro.core import cache as j_cache
 from repro_torch.core import cache as t_cache
 from repro_torch.elastic import resize as t_resize
 
-ROWS = (1, 4, 31, 32, 33, 64, 128)
+ROWS = (1, 4, 31, 32, 33, 64, 128, 1025, 2048, 5000, 33000)
 LANES = 3
 
 
