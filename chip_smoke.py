@@ -3199,11 +3199,12 @@ def report_profile(prof, card: str, tag: str, n_steps: int, wall_s: float,
     busy share of the wall) and, given ``out_dir``, write the whole
     kernel table there.  Only device events count: run eagerly, a CPU
     operator (``aten::mm``) also carries the device time of the kernels
-    it launched, and the profiler's own buffer markers are no work."""
+    it launched, and the profiler's own buffer markers and the shadows
+    of the program's spans (``core/spans.py``) are no work."""
     from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
-        if (e.device_type != DeviceType.CUDA
+        if (e.device_type != DeviceType.CUDA or e.key.startswith("ditto.")
                 or e.key in ("Command Buffer Full", "Activity Buffer Request",
                              "Buffer Flush")):
             continue

@@ -69,6 +69,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import priority as prio
+from repro_torch.core import spans
 from repro_torch.core.fc_cache import fc_access, fc_access_group
 from repro_torch.core.hashing import bucket_of, hash_key
 from repro_torch.core.types import (SIZE_EMPTY, SIZE_HISTORY, CacheConfig,
@@ -958,6 +959,15 @@ def _captured_step(step, key, carry, xs) -> _Captured:
     k = (key, dev, _sig(_leaves(carry)), _sig(x[0] for x in xs))
     if k in _GRAPHS:
         return _GRAPHS[k]
+    with spans.span("ditto.capture"):
+        _GRAPHS[k] = _capture(step, carry, xs, dev)
+    spans.count("graph_captures")
+    return _GRAPHS[k]
+
+
+def _capture(step, carry, xs, dev) -> _Captured:
+    """The capture of :func:`_captured_step`, on a fresh copy of the
+    carry."""
     leaves = [t.clone() for t in _leaves(carry)]
     carry_s = _rebuild(carry, leaves)
     x_s = tuple(x[0].clone() for x in xs)
@@ -977,8 +987,7 @@ def _captured_step(step, key, carry, xs) -> _Captured:
         _POOLS[dev] = torch.cuda.graph_pool_handle()
     with torch.cuda.device(dev):
         graph, y_s = capture_graph(run, _POOLS[dev])
-    _GRAPHS[k] = _Captured(graph, leaves, x_s, y_s)
-    return _GRAPHS[k]
+    return _Captured(graph, leaves, x_s, y_s)
 
 
 _EAGER = []
@@ -1022,32 +1031,38 @@ def _scan(step, carry, xs, key, between=None):
     if n == 0:
         return carry, None
     if xs[0].device.type != "cuda" or _EAGER:
-        carry = _rebuild(carry, [t.clone() for t in _leaves(carry)])
+        with spans.span("ditto.scan.copy_in"):
+            carry = _rebuild(carry, [t.clone() for t in _leaves(carry)])
         ys = []
         for i in range(n):
-            carry, y = step(carry, tuple(x[i] for x in xs))
+            with spans.span("ditto.scan.step"):
+                carry, y = step(carry, tuple(x[i] for x in xs))
             if between is not None:
                 carry = between(carry, y)
             ys.append(y)
         return carry, tuple(torch.stack(p) for p in zip(*ys))
 
     cap = _captured_step(step, key, carry, xs)
-    for dst, src in zip(cap.leaves, _leaves(carry)):
-        dst.copy_(src)
+    with spans.span("ditto.scan.copy_in"):
+        for dst, src in zip(cap.leaves, _leaves(carry)):
+            dst.copy_(src)
     ys = tuple(torch.empty((n,) + tuple(y.shape), dtype=y.dtype,
                            device=y.device) for y in cap.ys)
     for i in range(n):
-        for dst, x in zip(cap.xs, xs):
-            dst.copy_(x[i])
-        cap.graph.replay()
-        for buf, y in zip(ys, cap.ys):
-            buf[i].copy_(y)
+        with spans.span("ditto.scan.step"):
+            for dst, x in zip(cap.xs, xs):
+                dst.copy_(x[i])
+            cap.graph.replay()
+            for buf, y in zip(ys, cap.ys):
+                buf[i].copy_(y)
         if between is not None:
             new = between(_rebuild(carry, cap.leaves), cap.ys)
             for dst, src in zip(cap.leaves, _leaves(new)):
                 if src is not dst:
                     dst.copy_(src)
-    return _rebuild(carry, [t.clone() for t in cap.leaves]), ys
+    with spans.span("ditto.scan.copy_out"):
+        out = [t.clone() for t in cap.leaves]
+    return _rebuild(carry, out), ys
 
 
 def _san_carry(cfg: CacheConfig, dev) -> tuple:

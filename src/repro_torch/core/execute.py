@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.cache import (TraceResult, _run_trace_grouped_impl,
                                     _run_trace_impl, make_cache)
 from repro_torch.core.types import (CacheConfig, CacheState, ClientState,
@@ -79,7 +80,7 @@ class ExecResult(NamedTuple):
     weights: np.ndarray        # f32[R, E] expert-weight trajectory
     #                            ([R, T, E] when n_tenants > 1)
     windows: Tuple[dict, ...]  # per-segment metrics: start/stop rows,
-                               # width, steps, fill, wall_s, us_per_call
+                               # width, steps, fill, wall_s
     plan_s: float              # host planning time (seconds)
     wall_s: float              # execution wall time (seconds, excludes
                                # planning)
@@ -193,16 +194,15 @@ def _execute_cluster(cluster, trace, *, plan, exec_cfg, is_write, sizes,
     t0 = time.perf_counter()
     new_cluster, hits = cluster.execute(keys, is_write, sizes, tenants,
                                         route_factor=xc.route_factor)
-    hits = hits.cpu().numpy()
+    with spans.span("ditto.readback"):
+        hits = hits.cpu().numpy()
     wall = time.perf_counter() - t0
     _WARM.add(warm_key)
 
     ops = (keys != 0).sum(axis=1).astype(np.int32)
     n_req = int(ops.sum())
     windows = (dict(start=0, stop=T, width=1, n_steps=T, n_requests=n_req,
-                    fill=1.0, wall_s=wall,
-                    us_per_call=wall * 1e6 / max(n_req, 1),
-                    compiled=not was_warm),)
+                    fill=1.0, wall_s=wall, compiled=not was_warm),)
     return ExecResult(new_cluster, hits.sum(axis=1).astype(np.int32), ops,
                       np.zeros((0,), np.float32), windows, 0.0, wall, None)
 
@@ -234,10 +234,19 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
     round, in the schedule's round order.
     """
     from repro_torch.dm.cluster import Cluster
-    if isinstance(cache, Cluster):
-        return _execute_cluster(cache, trace, plan=plan, exec_cfg=exec_cfg,
-                                is_write=is_write, sizes=sizes,
-                                tenants=tenants)
+    with spans.span("ditto.execute"):
+        if isinstance(cache, Cluster):
+            return _execute_cluster(cache, trace, plan=plan,
+                                    exec_cfg=exec_cfg, is_write=is_write,
+                                    sizes=sizes, tenants=tenants)
+        return _execute_cache(cache, trace, plan, exec_cfg, is_write, sizes,
+                              tenants, model, by_lane)
+
+
+def _execute_cache(cache, trace, plan, exec_cfg, is_write, sizes, tenants,
+                   model, by_lane) -> ExecResult:
+    """The cache branch of :func:`execute`: plan the trace, then run
+    each segment's steps on the card (or the CPU)."""
     cache = _as_cache(cache)
     if exec_cfg is None:
         exec_cfg = cache.cfg.split()[1]
@@ -254,8 +263,10 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
     sizes_np = None if sizes is None else np.asarray(sizes, np.uint32)
     tenants_np = None if tenants is None else np.asarray(tenants, np.uint32)
 
-    sched, plan_s = _schedule_for(plan, keys, run_cfg, exec_cfg,
-                                  is_write_np, sizes_np, tenants_np, model)
+    with spans.span("ditto.plan"):
+        sched, plan_s = _schedule_for(plan, keys, run_cfg, exec_cfg,
+                                      is_write_np, sizes_np, tenants_np,
+                                      model)
 
     def _t(arr, dtype=torch.int64):
         return torch.as_tensor(np.asarray(arr).astype(
@@ -269,42 +280,47 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
         if rows <= 0:
             continue
         grouped = seg.width > 1
-        if grouped:
-            gp = seg.plan
-            args = (_t(gp.keys), _t(gp.is_write, torch.bool), _t(gp.sizes),
-                    None if gp.tenants is None else _t(gp.tenants))
-            impl = _run_trace_grouped_impl
-            n_req, n_steps, fill = gp.n_scheduled, gp.n_groups, gp.fill
-        else:
-            sl = slice(seg.start, seg.stop)
-            args = (_t(keys[sl]),
-                    None if is_write_np is None
-                    else _t(is_write_np[sl], torch.bool),
-                    None if sizes_np is None else _t(sizes_np[sl]),
-                    None if tenants_np is None else _t(tenants_np[sl]))
-            impl = _run_trace_impl
-            n_req = int((keys[sl] != 0).sum())
-            n_steps, fill = rows, 1.0
+        with spans.span("ditto.upload"):
+            if grouped:
+                gp = seg.plan
+                args = (_t(gp.keys), _t(gp.is_write, torch.bool),
+                        _t(gp.sizes),
+                        None if gp.tenants is None else _t(gp.tenants))
+                impl = _run_trace_grouped_impl
+                n_req, n_steps, fill = gp.n_scheduled, gp.n_groups, gp.fill
+            else:
+                sl = slice(seg.start, seg.stop)
+                args = (_t(keys[sl]),
+                        None if is_write_np is None
+                        else _t(is_write_np[sl], torch.bool),
+                        None if sizes_np is None else _t(sizes_np[sl]),
+                        None if tenants_np is None
+                        else _t(tenants_np[sl]))
+                impl = _run_trace_impl
+                n_req = int((keys[sl] != 0).sum())
+                n_steps, fill = rows, 1.0
         warm_key = (run_cfg, seg.width, C, str(dev))
         was_warm = warm_key in _WARM
-        _sync(dev)
-        t0 = time.perf_counter()
-        res: TraceResult = impl(run_cfg, state, clients, *args,
-                                by_lane=by_lane)
-        _sync(dev)
-        wall = time.perf_counter() - t0
+        with spans.span("ditto.segment"):
+            _sync(dev)
+            t0 = time.perf_counter()
+            res: TraceResult = impl(run_cfg, state, clients, *args,
+                                    by_lane=by_lane)
+            _sync(dev)
+            wall = time.perf_counter() - t0
         _WARM.add(warm_key)
         wall_total += wall
         state, clients = res.state, res.clients
-        stats = OpStats(*[a + b for a, b in zip(stats, res.stats)])
-        hits_parts.append(res.hits.cpu().numpy().astype(np.int32))
-        ops_parts.append(res.ops.cpu().numpy().astype(np.int32))
-        w_parts.append(res.weights.cpu().numpy())
+        with spans.span("ditto.merge_stats"):
+            stats = OpStats(*[a + b for a, b in zip(stats, res.stats)])
+        with spans.span("ditto.readback"):
+            hits_parts.append(res.hits.cpu().numpy().astype(np.int32))
+            ops_parts.append(res.ops.cpu().numpy().astype(np.int32))
+            w_parts.append(res.weights.cpu().numpy())
         windows.append(dict(
             start=seg.start, stop=seg.stop, width=seg.width,
             n_steps=n_steps, n_requests=n_req, fill=round(float(fill), 4),
-            wall_s=wall, us_per_call=wall * 1e6 / max(n_req, 1),
-            compiled=not was_warm))
+            wall_s=wall, compiled=not was_warm))
         if model is not None and was_warm and n_steps > 0:
             model.observe(seg.width, wall * 1e6 / n_steps,
                           eff=rows / (n_steps * seg.width))

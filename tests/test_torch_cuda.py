@@ -624,6 +624,36 @@ def test_a_later_run_replays_the_captured_step(cuda):
 
 
 @pytest.mark.cuda
+def test_a_shape_is_captured_once_and_its_call_marks_the_copies(cuda):
+    """``graph_captures`` counts one capture on a shape's first call and
+    none on the next; under the profiler a call of that shape marks the
+    carry's copy into the graph, each replay and the copy out, inside
+    its segment."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import ExecConfig, spans
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, fc_threshold=11)
+    xc = ExecConfig(batch=4, plan="lane")
+    keys, wr = gen.interleave(*_ycsb("A", 320, 300, 4))
+    n0 = spans.counters()["graph_captures"]
+    r = execute(make(cfg, C, 0, device=cuda), keys, exec_cfg=xc, is_write=wr)
+    n1 = spans.counters()["graph_captures"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = execute(r.cache, keys, exec_cfg=xc, is_write=wr)
+    assert (n1 - n0, spans.counters()["graph_captures"] - n1) == (1, 0)
+    names = [e.name() for e in sorted(prof.profiler.kineto_results.events(),
+                                      key=lambda e: e.start_ns())
+             if e.name().startswith("ditto.")
+             and str(e.device_type()).endswith("CPU")]
+    (w,) = r.windows
+    assert names == ["ditto.execute", "ditto.plan", "ditto.upload",
+                     "ditto.segment", "ditto.scan.copy_in",
+                     *["ditto.scan.step"] * w["n_steps"],
+                     "ditto.scan.copy_out", "ditto.merge_stats",
+                     "ditto.readback"]
+
+
+@pytest.mark.cuda
 def test_the_captured_step_writes_the_table_in_place(cuda):
     """The captured grouped step runs the in-place step on the graph's
     own carry: each table column it returns is the column it was given,
