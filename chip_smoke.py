@@ -2101,10 +2101,10 @@ def dm_cold_warm(dev, card: str, tag: str = "") -> list:
         acc["replay"] += time.perf_counter() - t0
         acc["n"] += 1
 
-    def timed_capture(fn, pool=None):
+    def timed_capture(fn, pool=None, **kw):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        out = capture(fn, pool)
+        out = capture(fn, pool, **kw)
         torch.cuda.synchronize(dev)
         acc["capture"] += time.perf_counter() - t0
         return out
@@ -3154,10 +3154,11 @@ def profile_steps(dev, card: str, gp, trace, n_groups: int,
     backend with torch.profiler; print where the device time goes (per
     step, and the busy share of the wall) and, given ``out_dir``, write
     the whole kernel table there.  The window includes ``execute()``'s
-    copy of the carry into the step's graph and out again, once a
-    segment; a second window of twice the steps, less the first, gives
-    the step alone.  ``cfg``: the cache's config (default: phase 3's),
-    for phases 9 and 10 (``tag`` names them)."""
+    copy of the carry's small leaves into the step's graph and out again,
+    once a segment (each call donates the table and the next runs on the
+    handle it returns); a second window of twice the steps, less the
+    first, gives the step alone.  ``cfg``: the cache's config (default:
+    phase 3's), for phases 9 and 10 (``tag`` names them)."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import CacheConfig, execute, make
@@ -3174,12 +3175,14 @@ def profile_steps(dev, card: str, gp, trace, n_groups: int,
     for backend in ("fused", "reference"):
         c = make(dataclasses.replace(cfg, backend=backend), LANES, SEED,
                  device=dev)
-        execute(c, trace, plan=first(n_groups))     # build + allocator warm
+        # build + allocator warm
+        c = execute(c, trace, plan=first(n_groups)).cache
         cats = []
         for k in (n_groups, 2 * n_groups):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 r = execute(c, trace, plan=first(k))
+            c = r.cache
             cats.append(report_profile(prof, card, backend + tag, k,
                                        r.wall_s,
                                        out_dir if k == n_groups else None))

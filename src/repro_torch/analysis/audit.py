@@ -206,11 +206,11 @@ def count_captures(step_fn, calls) -> tuple:
     seen = set()
     orig = C._scan
 
-    def scan(step, carry, xs, key):
+    def scan(step, carry, xs, key, **kw):
         if xs[0].shape[0]:
             seen.add((key, xs[0].device, C._sig(C._leaves(carry)),
                       C._sig(x[0] for x in xs)))
-        return orig(step, carry, xs, key)
+        return orig(step, carry, xs, key, **kw)
 
     before = len(C._GRAPHS)
     C._scan = scan

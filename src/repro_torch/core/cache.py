@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import NamedTuple, Tuple
 
 import torch
@@ -915,28 +916,39 @@ def _rebuild(tree, leaves) -> tuple:
 
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
-    leaves: list        # the carry the graph reads and overwrites
+    leaves: list        # the carry the graph reads and overwrites: its own
+    #                     buffers, None where it runs on a donated column
     xs: tuple           # the step input it reads
     ys: tuple           # the step output it writes
 
 
 # Captured steps, by (step key, device, carry and one step's input
-# signatures: the number of steps is not part of it), and
-# one memory pool per device that they share: replays run one at a time
-# on one stream, so no two graphs' intermediates are live together.
+# signatures, a donated carry's table addresses: the number of steps is
+# not part of it), and one memory pool per device that they share:
+# replays run one at a time on one stream, so no two graphs'
+# intermediates are live together.  A donated graph is dropped at the
+# next donated lookup once any of its table's storages is freed
+# (``_GONE``): a copying scan's lookup leaves the cache as it is.
 _GRAPHS: dict = {}
 _POOLS: dict = {}
+_GONE: list = []
+
+# The state columns a donated scan runs on where the caller holds them:
+# the table's slot and bucket columns, the carry's bulk.  The step
+# writes them in place or returns them as they are.
+TABLE = WRITTEN + ("tenant", "bucket_ver")
 
 
-def capture_graph(fn, pool=None):
-    """Run ``fn()`` once on a side stream (the warm-up: kernel builds,
-    cached constants, launch counters), then capture a second call as a
-    CUDA graph on the current device.  Returns the graph and what the
-    captured call returned; each replay rewrites those outputs."""
+def capture_graph(fn, pool=None, warm=None):
+    """Run ``warm()`` (``fn()`` if None) once on a side stream (the
+    warm-up: kernel builds, cached constants, launch counters), then
+    capture a call of ``fn()`` as a CUDA graph on the current device.
+    Returns the graph and what the captured call returned; each replay
+    rewrites those outputs."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        (fn if warm is None else warm)()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool):
@@ -948,29 +960,46 @@ def _sig(tensors) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
-def _captured_step(step, key, carry, xs) -> _Captured:
+def _donated(carry, donate: bool) -> list:
+    """For each leaf of ``carry``, whether a scan runs on it in place: the
+    ``TABLE`` columns of its first part (the state) when ``donate``."""
+    table = [donate and f in TABLE and getattr(carry[0], f).numel() > 0
+             for f in carry[0]._fields]
+    return table + [False] * (len(_leaves(carry)) - len(table))
+
+
+def _captured_step(step, key, carry, xs, donate: bool = False) -> _Captured:
     """The graph of ``step`` for this key and these shapes, captured at
-    first use: it reads a private copy of the carry and one element of
-    ``xs``, and overwrites the copy with the step's result.  A step that
-    works in place returns leaves of the copy itself (the table columns):
-    those need no copy back; the rest (0-d counters, the client state)
-    are copied."""
+    first use: it reads one element of ``xs`` and a carry whose donated
+    leaves (:func:`_donated`) are the caller's own and the rest a private
+    copy, and overwrites that carry with the step's result.  A step that
+    works in place returns the table columns it was given: those need
+    no copy back; the rest (0-d counters, the client state) are copied.
+    A donated graph is keyed on its columns' addresses as well, so a
+    table is never replayed against another's memory."""
+    while donate and _GONE:
+        _GRAPHS.pop(_GONE.pop(), None)
     dev = xs[0].device
-    k = (key, dev, _sig(_leaves(carry)), _sig(x[0] for x in xs))
+    table = [t for t, d in zip(_leaves(carry), _donated(carry, donate))
+             if d]
+    k = (key, dev, _sig(_leaves(carry)), _sig(x[0] for x in xs),
+         tuple((t.data_ptr(), t.stride()) for t in table))
     if k in _GRAPHS:
         return _GRAPHS[k]
     with spans.span("ditto.capture"):
-        _GRAPHS[k] = _capture(step, carry, xs, dev)
+        _GRAPHS[k] = _capture(step, carry, xs, dev, donate)
+    for s in {id(t.untyped_storage()): t.untyped_storage()
+              for t in table}.values():
+        weakref.finalize(s, _GONE.append, k).atexit = False
     spans.count("graph_captures")
     return _GRAPHS[k]
 
 
-def _capture(step, carry, xs, dev) -> _Captured:
-    """The capture of :func:`_captured_step`, on a fresh copy of the
-    carry."""
-    leaves = [t.clone() for t in _leaves(carry)]
+def _into(step, carry, leaves, x_s):
+    """``run()``: ``step`` on ``carry``'s tree of ``leaves`` and the input
+    ``x_s``, the new carry written into ``leaves``; returns the step's
+    output."""
     carry_s = _rebuild(carry, leaves)
-    x_s = tuple(x[0].clone() for x in xs)
     inputs = {t.untyped_storage().data_ptr() for t in leaves}
 
     def run():
@@ -983,11 +1012,39 @@ def _capture(step, carry, xs, dev) -> _Captured:
             dst.copy_(src)
         return y
 
+    return run
+
+
+def _padded(run, leaves, donated, x_s) -> None:
+    """``run()`` with every lane of the step padded (its keys, the first
+    input, 0), the carry's own leaves put back after it: the donated
+    table columns, which no padded lane writes, stay as they were."""
+    small = [t for t, d in zip(leaves, donated) if not d]
+    kept = [t.clone() for t in small]
+    x_s[0].zero_()
+    run()
+    for t, k in zip(small, kept):
+        t.copy_(k)
+
+
+def _capture(step, carry, xs, dev, donate: bool) -> _Captured:
+    """The capture of :func:`_captured_step`: on a fresh copy of the
+    carry, but for its donated leaves, which the graph reads and writes
+    where the caller holds them.  A donated capture warms up on padded
+    lanes (:func:`_padded`), so that warm-up applies no request to the
+    caller's table and copies none of it."""
+    donated = _donated(carry, donate)
+    leaves = [t if d else t.clone()
+              for t, d in zip(_leaves(carry), donated)]
+    x_s = tuple(x[0].clone() for x in xs)
+    run = _into(step, carry, leaves, x_s)
     if dev not in _POOLS:
         _POOLS[dev] = torch.cuda.graph_pool_handle()
+    warm = (lambda: _padded(run, leaves, donated, x_s)) if donate else None
     with torch.cuda.device(dev):
-        graph, y_s = capture_graph(run, _POOLS[dev])
-    return _Captured(graph, leaves, x_s, y_s)
+        graph, y_s = capture_graph(run, _POOLS[dev], warm=warm)
+    return _Captured(graph, [None if d else t
+                             for t, d in zip(leaves, donated)], x_s, y_s)
 
 
 _EAGER = []
@@ -1004,7 +1061,7 @@ def eager_steps():
         _EAGER.pop()
 
 
-def _scan(step, carry, xs, key, between=None):
+def _scan(step, carry, xs, key, between=None, donate: bool = False):
     """``lax.scan`` of the JAX package: ``carry, y = step(carry, x)`` for
     each x along the leading axis of the tensors ``xs``; returns the last
     carry and the ys stacked (None for an empty sequence).  ``key`` names
@@ -1017,22 +1074,32 @@ def _scan(step, carry, xs, key, between=None):
     as a CUDA graph once per key, device and shapes, and replayed per
     element: the step issues no host sync and no upload, so the graph is
     the step, and a replay costs one launch instead of the step's
-    thousand-odd operator launches.  The graph works on its own copy of
-    the carry; the caller's tensors are copied in and the result copied
-    out, so neither is shared with the graph.
+    thousand-odd operator launches.
 
-    ``step`` may write its carry in place (``access_group_``): on the CPU
-    the loop runs on one copy of the caller's carry, made before it, and
-    on the card on the graph's own; no caller's tensor is written.
+    ``step`` may write its carry in place (``access_group_``).  Without
+    ``donate`` no caller's tensor is written: on the CPU the loop runs on
+    one copy of the caller's carry, made before it, and on the card the
+    graph works on its own copy, the caller's tensors copied in and the
+    result copied out.  With ``donate`` (the JAX package's buffer
+    donation) the carry starts with a ``CacheState`` and ``xs`` with the
+    steps' keys, and the scan consumes the caller's table: its ``TABLE``
+    columns are read and written where they are, on the CPU and in the
+    graph alike, and the carry returned holds those very tensors; the
+    graph copies only the small leaves (scalars, weights, the client
+    state, the counters) in and out.  The caller's other leaves stay as
+    they were, so a donated carry is not to be read again.
 
     Inside :func:`eager_steps` the card runs the loop too, each step's
     operators launched one by one (the graph audit traces them)."""
     n = xs[0].shape[0]
     if n == 0:
         return carry, None
+    if donate:
+        spans.count("donated_scans")
     if xs[0].device.type != "cuda" or _EAGER:
-        with spans.span("ditto.scan.copy_in"):
-            carry = _rebuild(carry, [t.clone() for t in _leaves(carry)])
+        if not donate:
+            with spans.span("ditto.scan.copy_in"):
+                carry = _rebuild(carry, [t.clone() for t in _leaves(carry)])
         ys = []
         for i in range(n):
             with spans.span("ditto.scan.step"):
@@ -1042,10 +1109,13 @@ def _scan(step, carry, xs, key, between=None):
             ys.append(y)
         return carry, tuple(torch.stack(p) for p in zip(*ys))
 
-    cap = _captured_step(step, key, carry, xs)
+    cap = _captured_step(step, key, carry, xs, donate)
+    leaves = [src if buf is None else buf
+              for buf, src in zip(cap.leaves, _leaves(carry))]
     with spans.span("ditto.scan.copy_in"):
-        for dst, src in zip(cap.leaves, _leaves(carry)):
-            dst.copy_(src)
+        for buf, src in zip(cap.leaves, _leaves(carry)):
+            if buf is not None:
+                buf.copy_(src)
     ys = tuple(torch.empty((n,) + tuple(y.shape), dtype=y.dtype,
                            device=y.device) for y in cap.ys)
     for i in range(n):
@@ -1056,12 +1126,13 @@ def _scan(step, carry, xs, key, between=None):
             for buf, y in zip(ys, cap.ys):
                 buf[i].copy_(y)
         if between is not None:
-            new = between(_rebuild(carry, cap.leaves), cap.ys)
-            for dst, src in zip(cap.leaves, _leaves(new)):
+            new = between(_rebuild(carry, leaves), cap.ys)
+            for dst, src in zip(leaves, _leaves(new)):
                 if src is not dst:
                     dst.copy_(src)
     with spans.span("ditto.scan.copy_out"):
-        out = [t.clone() for t in cap.leaves]
+        out = [src if buf is None else buf.clone()
+               for buf, src in zip(cap.leaves, leaves)]
     return _rebuild(carry, out), ys
 
 
@@ -1105,9 +1176,12 @@ def _run_trace_impl(cfg: CacheConfig, state: CacheState,
                     is_write: torch.Tensor | None = None,
                     obj_size: torch.Tensor | None = None,
                     tenant: torch.Tensor | None = None,
-                    by_lane: bool = False) -> TraceResult:
+                    by_lane: bool = False,
+                    donate: bool = False) -> TraceResult:
     """Run a [T, C] trace, one round per step.  ``by_lane``: hits and
-    ops per round and lane ([T, C] bool) instead of per round."""
+    ops per round and lane ([T, C] bool) instead of per round.
+    ``donate``: the scan consumes ``state``'s table (:func:`_scan`), and
+    the result's state holds its columns."""
 
     def step(carry, xs):
         st, cl, sa, *san = carry
@@ -1124,23 +1198,16 @@ def _run_trace_impl(cfg: CacheConfig, state: CacheState,
     (state, clients, stats, *san), ys = _scan(
         step, _trace_carry(cfg, state, clients, keys.device),
         _trace_inputs(keys, is_write, obj_size, tenant),
-        ("access", cfg, by_lane))
+        ("access", cfg, by_lane), donate=donate)
     _read_word(san)
     if ys is None:
         ys = _empty_ys(cfg, keys.device, (C,) if by_lane else ())
     return TraceResult(state, clients, stats, *ys)
 
 
-def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
-                            clients: ClientState, keys: torch.Tensor,
-                            is_write: torch.Tensor | None = None,
-                            obj_size: torch.Tensor | None = None,
-                            tenant: torch.Tensor | None = None,
-                            by_lane: bool = False) -> TraceResult:
-    """Run a planned [NG, G, C] grouped trace, one group per step.
-    Per-round hit/op counts ([NG*G]; ``by_lane``: [NG*G, C] bool);
-    weights repeat per round."""
-    NG, G, C = keys.shape
+def _group_step(cfg: CacheConfig, by_lane: bool):
+    """The step of :func:`_run_trace_grouped_impl`: one [G, C] group of
+    a (state, clients, stats[, word]) carry, in place."""
 
     def step(carry, xs):
         st, cl, sa, *san = carry
@@ -1153,10 +1220,25 @@ def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
             return carry, (res.hit, k != 0, st.weights)
         return carry, (res.hit.sum(dim=1), (k != 0).sum(dim=1), st.weights)
 
+    return step
+
+
+def _run_trace_grouped_impl(cfg: CacheConfig, state: CacheState,
+                            clients: ClientState, keys: torch.Tensor,
+                            is_write: torch.Tensor | None = None,
+                            obj_size: torch.Tensor | None = None,
+                            tenant: torch.Tensor | None = None,
+                            by_lane: bool = False,
+                            donate: bool = False) -> TraceResult:
+    """Run a planned [NG, G, C] grouped trace, one group per step.
+    Per-round hit/op counts ([NG*G]; ``by_lane``: [NG*G, C] bool);
+    weights repeat per round.  ``donate`` as :func:`_run_trace_impl`'s."""
+    NG, G, C = keys.shape
     (state, clients, stats, *san), ys = _scan(
-        step, _trace_carry(cfg, state, clients, keys.device),
+        _group_step(cfg, by_lane),
+        _trace_carry(cfg, state, clients, keys.device),
         _trace_inputs(keys, is_write, obj_size, tenant),
-        ("access_group", cfg, by_lane))
+        ("access_group", cfg, by_lane), donate=donate)
     _read_word(san)
     lane = (C,) if by_lane else ()
     if ys is None:

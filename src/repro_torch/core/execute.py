@@ -18,6 +18,8 @@ branch does.
 
 Every tensor of a handle lives on one device.  ``make`` puts it on the
 card unless the caller names another device; with no card it raises.
+On the card ``execute`` consumes the handle it is given (buffer
+donation, ``ExecConfig.donate``): use the returned ``res.cache``.
 Segment wall times end in ``torch.cuda.synchronize()`` when the cache is
 on the card, so they measure the device's work, not its enqueue.
 """
@@ -107,10 +109,11 @@ class ExecResult(NamedTuple):
         return hit_ratio(self.stats)
 
 
-# (cfg, width, lanes, device) points that have run once.  The first
-# segment of each pays the kernel build, a warm-up step and, on the card,
-# the step's CUDA graph capture (``core/cache.py`` keeps the graph for
-# later segments), so its wall time does not teach the cost model.
+# (cfg, width, lanes, device) points that have run once (and on the card,
+# a donated table's address).  The first segment of each pays the kernel
+# build, a warm-up step and, on the card, the step's CUDA graph capture
+# (``core/cache.py`` keeps the graph for later segments), so its wall
+# time does not teach the cost model.
 _WARM: set = set()
 
 
@@ -158,6 +161,14 @@ def _schedule_for(plan, keys, run_cfg: CacheConfig, xc: ExecConfig,
                                np.full(1, gp.batch, np.int32),
                                max(T, 1), plan_s), plan_s
     raise ValueError(f"unknown plan mode {plan!r}")
+
+
+def _donates(exec_cfg: ExecConfig, device: torch.device) -> bool:
+    """``exec_cfg.donate``, or the JAX package's default when it is None:
+    on for a cache on the card, off on the CPU."""
+    if exec_cfg.donate is None:
+        return device.type == "cuda"
+    return exec_cfg.donate
 
 
 def _sync(device: torch.device) -> None:
@@ -223,7 +234,13 @@ def execute(cache, trace, *, plan=_UNSET, exec_cfg: ExecConfig | None = None,
         ``GroupPlan`` / ``SegmentSchedule``.  Defaults to
         ``exec_cfg.plan``.
       exec_cfg: execution-time knobs; ``None`` derives one from the cache
-        config's ``backend`` field.
+        config's ``backend`` field.  Its ``donate`` (``None``: on for a
+        cache on the card, off on the CPU, as in the JAX package) makes
+        the call consume ``cache``: the steps read and write its table
+        columns where they are, and the returned ``cache`` holds those
+        very tensors, so reading the old handle's table afterwards shows
+        the new state.  ``donate=False`` keeps it as it was.
+        A Cluster ignores the field: its steps always run on a copy.
       is_write / sizes / tenants: optional [T, C] op arrays.
       model: optional :class:`PlanCostModel` shared across calls.
       by_lane: ``hits``/``ops`` per executed round and lane ([R, C]), so
@@ -254,6 +271,7 @@ def _execute_cache(cache, trace, plan, exec_cfg, is_write, sizes, tenants,
     if plan is _UNSET:
         plan = exec_cfg.plan
     dev = cache.device
+    donate = _donates(exec_cfg, dev)
 
     keys = np.asarray(trace, np.uint32)
     if keys.ndim != 2:
@@ -300,12 +318,14 @@ def _execute_cache(cache, trace, plan, exec_cfg, is_write, sizes, tenants,
                 n_req = int((keys[sl] != 0).sum())
                 n_steps, fill = rows, 1.0
         warm_key = (run_cfg, seg.width, C, str(dev))
+        if donate and dev.type == "cuda":   # a donated table's own graph
+            warm_key += (state.key.data_ptr(),)
         was_warm = warm_key in _WARM
         with spans.span("ditto.segment"):
             _sync(dev)
             t0 = time.perf_counter()
             res: TraceResult = impl(run_cfg, state, clients, *args,
-                                    by_lane=by_lane)
+                                    by_lane=by_lane, donate=donate)
             _sync(dev)
             wall = time.perf_counter() - t0
         _WARM.add(warm_key)

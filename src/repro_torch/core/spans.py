@@ -9,8 +9,10 @@ starts with ``ditto.``; a call's spans are those nested inside its
 captured CUDA graph: each wraps host code that launches device work.
 
 ``count(name)`` adds to a plain Python counter (no device work, no
-sync); ``counters()`` reads them all.  The one counter is
-``graph_captures``: steps captured as a CUDA graph (``core/cache.py``).
+sync); ``counters()`` reads them all.  The counters are
+``graph_captures``, steps captured as a CUDA graph, and
+``donated_scans``, scans that ran in place on a donated table
+(``core/cache.py::_scan``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import contextlib
 import torch
 
 _OFF = contextlib.nullcontext()
-_COUNTS = {"graph_captures": 0}
+_COUNTS = {"graph_captures": 0, "donated_scans": 0}
 
 
 def span(name: str):

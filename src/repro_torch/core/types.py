@@ -142,6 +142,10 @@ class ExecConfig:
     plan: Optional[str] = "adaptive"
     route_factor: int = 4
     window: int = 0
+    donate: Optional[bool] = None   # run the step in place on the caller's
+    #                                 table, consuming its handle (None =
+    #                                 on for a cache on the card, off on
+    #                                 the CPU, as the JAX package's rule)
 
     def __post_init__(self):
         if self.backend not in ("reference", "fused"):

@@ -587,7 +587,7 @@ def dm_execute(local_cfg: CacheConfig, dm: DMCache, keys, is_write=None,
         (state, clients, stats, _, *san), (hit_back,) = _scan(
             _dm_step(local_cfg, S, lanes, q),
             (dm.state, dm.clients, stats, pad) + san0,
-            tuple(recv), ("dm_step", local_cfg, S, lanes, q))
+            tuple(recv), ("dm_step", local_cfg, S, lanes, q), donate=False)
     else:
         pen = dm.clients.penalty_acc
         pend = PendingSync(torch.zeros((), dtype=torch.bool, device=dev),
@@ -596,7 +596,7 @@ def dm_execute(local_cfg: CacheConfig, dm: DMCache, keys, is_write=None,
             _dm_step_ranks(local_cfg, pool, lanes, q),
             (dm.state, dm.clients, stats, pad, pend) + san0,
             tuple(recv), ("dm_step_ranks", local_cfg, lanes, q)
-            + pool.layout(), between=_share_sync(pool))
+            + pool.layout(), between=_share_sync(pool), donate=False)
         state, clients = _sync_apply(local_cfg, state, clients,
                                      pend.do_sync, pend.pen)
     _read_word(san)

@@ -15,6 +15,7 @@ per-round hits are bit-equal.  The f32 columns (``weights``,
 ``pow`` apart in the last place.
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -34,6 +35,7 @@ from repro.core.execute import make as j_make
 from repro.workloads import gen as j_gen
 from repro.workloads import plan as j_plan
 from repro_torch.core import cache as t_cache
+from repro_torch.core import spans
 from repro_torch.core import types as t_types
 from repro_torch.core.execute import execute as t_execute
 from repro_torch.core.execute import make as t_make
@@ -450,3 +452,161 @@ def test_windows_mark_the_first_segment_at_each_width():
                    model=model)
     marks = [w["compiled"] for r in (r1, r2, r3) for w in r.windows]
     assert marks == [True, True, False]
+
+
+# ---------------------------------------------------------------------------
+# buffer donation (ExecConfig.donate)
+# ---------------------------------------------------------------------------
+
+def _load_then_window(cfg, workload, xc, seed=21):
+    """A load phase (SETs of 400 distinct keys in one call) then three
+    window calls of a seeded YCSB trace, each call on the handle the last
+    returned: the results and the handle ``make()`` gave."""
+    keys, wr = _trace(workload, n=1440, seed=seed)
+    load = np.arange(1, 401, dtype=np.uint32).reshape(-1, C)
+    start = t_make(cfg, C, 0, device="cpu")
+    out = [t_execute(start, load, exec_cfg=xc, is_write=np.ones_like(
+        load, bool))]
+    for part in np.array_split(np.arange(keys.shape[0]), 3):
+        out.append(t_execute(out[-1].cache, keys[part], exec_cfg=xc,
+                             is_write=wr[part]))
+    return out, start
+
+
+@pytest.mark.parametrize("workload", ["A", "C"])
+@pytest.mark.parametrize("plan", ["lane", None])
+def test_a_donated_execute_matches_a_copying_one(plan, workload):
+    """Over a load phase and window calls, ``donate=True`` gives every
+    call's hits, ops and weights and every state, client and counter
+    leaf bit-equal to ``donate=False``, and counts one donated scan a
+    segment."""
+    _, cfg = _cfgs("fused", fc_threshold=5)
+    runs = {}
+    for donate in (False, True):
+        xc = t_types.ExecConfig(batch=4, plan=plan, donate=donate)
+        n0 = spans.counters()["donated_scans"]
+        runs[donate], _ = _load_then_window(cfg, workload, xc)
+        segments = sum(len(r.windows) for r in runs[donate])
+        assert spans.counters()["donated_scans"] - n0 == \
+            (segments if donate else 0)
+    for a, b in zip(runs[False], runs[True]):
+        for x, y in ((a.hits, b.hits), (a.ops, b.ops),
+                     (a.weights, b.weights)):
+            assert x.tobytes() == y.tobytes()
+    a, b = runs[False][-1], runs[True][-1]
+    for x, y in ((a.state, b.state), (a.clients, b.clients),
+                 (a.stats, b.stats)):
+        for f in x._fields:
+            assert torch.equal(getattr(x, f), getattr(y, f)), f
+    assert int(a.stats.evictions) > 0 and int(a.stats.hits) > 0
+
+
+@pytest.mark.parametrize("donate", [False, None])
+def test_a_copying_execute_leaves_the_callers_tensors_untouched(donate):
+    """``donate=False``, and the default (None) on the CPU: every call
+    returns tables of its own, and the handle each call was given keeps
+    its state, clients and counters."""
+    _, cfg = _cfgs("fused")
+    keys, wr = _trace("A", n=960, seed=14)
+    xc = t_types.ExecConfig(batch=4, plan="lane", donate=donate)
+    c = t_execute(t_make(cfg, C, 0, device="cpu"), keys[:60], exec_cfg=xc,
+                  is_write=wr[:60]).cache
+    before = _snapshot(c.state, c.clients, c.stats)
+    r = t_execute(c, keys[60:], exec_cfg=xc, is_write=wr[60:])
+    assert _same_snapshots(before, _snapshot(c.state, c.clients, c.stats))
+    assert int(r.stats.evictions) > 0
+    for f in t_cache.TABLE:
+        assert getattr(r.state, f).data_ptr() != getattr(c.state, f) \
+            .data_ptr(), f
+
+
+def test_a_donated_execute_shares_the_callers_table():
+    """``donate=True`` consumes the handle: the returned state holds the
+    caller's own table columns, so the old handle's table reads the new
+    state, while its scalars and client state stay as they were."""
+    _, cfg = _cfgs("fused")
+    keys, wr = _trace("A", n=960, seed=15)
+    xc = t_types.ExecConfig(batch=4, plan="lane", donate=True)
+    c = t_make(cfg, C, 0, device="cpu")
+    clock = c.state.clock.clone()
+    clients = t_types.clients_to_numpy(c.clients)
+    r = t_execute(c, keys, exec_cfg=xc, is_write=wr)
+    for f in t_cache.TABLE:
+        assert getattr(r.state, f) is getattr(c.state, f), f
+    assert int(r.state.n_cached) > 0 and torch.equal(c.state.key,
+                                                     r.state.key)
+    assert int((c.state.key != 0).sum()) > 0
+    assert torch.equal(c.state.clock, clock)
+    assert not torch.equal(r.state.clock, clock)
+    after = t_types.clients_to_numpy(c.clients)
+    assert all(np.array_equal(clients[f], after[f]) for f in clients)
+
+
+def test_exec_config_donate_follows_the_jax_package():
+    """The port's ``ExecConfig`` has the JAX package's ``donate`` field,
+    default None, resolved as there: on for the accelerator, off on the
+    CPU, an explicit value as given."""
+    from repro_torch.core.execute import _donates
+    t_fields = {f.name for f in dataclasses.fields(t_types.ExecConfig)}
+    j_fields = {f.name for f in dataclasses.fields(j_types.ExecConfig)}
+    assert "donate" in t_fields and t_fields <= j_fields
+    assert t_types.ExecConfig().donate is None is j_types.ExecConfig().donate
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    assert [_donates(t_types.ExecConfig(donate=d), dev)
+            for d in (None, True, False) for dev in (cpu, card)] == \
+        [False, True, True, True, False, False]
+
+
+def test_a_cluster_ignores_donate():
+    """The DM branch keeps its copying scan whatever ``donate`` says: the
+    cluster it was given keeps its tables, and no scan is donated."""
+    from repro_torch.dm import Cluster
+    _, cfg = _cfgs("fused")
+    cl = Cluster.make(cfg, 4, 4, device="cpu")
+    keys, wr = _trace("A", n=96, seed=16)
+    keys = np.concatenate([keys, keys], axis=1)
+    wr = np.concatenate([wr, wr], axis=1)
+    before = t_types.state_to_numpy(cl.dm.state)
+    n0 = spans.counters()["donated_scans"]
+    r = t_execute(cl, keys, exec_cfg=t_types.ExecConfig(donate=True),
+                  is_write=wr)
+    assert spans.counters()["donated_scans"] == n0
+    after = t_types.state_to_numpy(cl.dm.state)
+    assert all(np.array_equal(before[f], after[f]) for f in before)
+    assert int(r.ops.sum()) == int((keys != 0).sum())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(backend="fused"), dict(backend="reference"),
+    dict(backend="fused", n_tenants=3), dict(backend="fused", l0_entries=4),
+    dict(backend="fused", capacity=64, hist_len=64, n_tenants=2,
+         tenant_budget_blocks=(32, 32), sync_period=1, sanitize=True)],
+    ids=["fused", "reference", "tenants", "l0", "sanitize"])
+def test_a_padded_warm_up_step_leaves_a_donated_table_as_it_was(kw):
+    """A donated capture's warm-up (``_padded``): the grouped step with
+    every lane padded, on a warmed carry whose table columns are the
+    caller's own; the table comes out bit-equal and the carry's other
+    leaves are put back."""
+    _, cfg = _cfgs(kw.pop("backend"))
+    cfg = dataclasses.replace(cfg, **kw)
+    keys, wr = _trace("A", n=960, seed=17)
+    gp = t_plan.pack_rows(keys, cfg.n_buckets, 4, is_write=wr)
+    ten = np.tile(np.arange(C) % cfg.n_tenants, (gp.keys.shape[0],
+                                                  gp.keys.shape[1], 1))
+    xs = tuple(torch.from_numpy(np.asarray(a).astype(
+        np.bool_ if a is gp.is_write else np.int64))
+        for a in (gp.keys, gp.is_write, gp.sizes, ten))
+    warm = t_cache._run_trace_grouped_impl(
+        cfg, *t_make(cfg, C, 0, "cpu")[1:3], *xs)
+    assert int(warm.stats.evictions) > 0
+    carry = t_cache._trace_carry(cfg, warm.state, warm.clients, "cpu")
+    donated = t_cache._donated(carry, True)
+    leaves = t_cache._leaves(carry)
+    assert sum(donated) == len(t_cache.TABLE)
+    before = [t.clone() for t in leaves]
+    x_s = tuple(x[0].clone() for x in xs)
+    run = t_cache._into(t_cache._group_step(cfg, False), carry, leaves, x_s)
+    t_cache._padded(run, leaves, donated, x_s)
+    for i, (a, b) in enumerate(zip(before, leaves)):
+        assert torch.equal(a, b), i
+    assert not x_s[0].any()

@@ -28,8 +28,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import CacheConfig, execute, make
+from repro_torch.core import CacheConfig, ExecConfig, execute, make
 from repro_torch.core import cache as t_cache
+from repro_torch.core import spans
 from repro_torch.core import types as t_types
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core.hashing import hash_key
@@ -45,6 +46,12 @@ EXPERTS = ("lru", "lfu", "fifo", "size", "hyperbolic")
 CACHE_KERNELS = {"access_probe": 1, "hit_metadata_update": 1,
                  "ranked_eviction": 1, "drop_scatter": 1}
 C = 8
+
+
+def _keep(cfg) -> ExecConfig:
+    """``cfg``'s execution knobs with donation off: the call copies the
+    handle it is given, which the test reads again."""
+    return dataclasses.replace(cfg.split()[1], donate=False)
 
 
 @pytest.fixture
@@ -558,7 +565,8 @@ def test_trace_on_the_card_matches_the_cpu(cuda, backend):
         ops.reset_launches()
         r = execute(make(cfg, C, 0, device=dev), keys[:half], plan=gp,
                     is_write=wr[:half])
-        r2 = execute(r.cache, keys[half:], plan=None, is_write=wr[half:])
+        r2 = execute(r.cache, keys[half:], plan=None, exec_cfg=_keep(cfg),
+                     is_write=wr[half:])
         runs[str(dev)] = (r, r2, ops.launches())
     (a, a2, _), (b, b2, launches) = runs["cpu"], runs[str(cuda)]
     _same(a, b)
@@ -591,12 +599,12 @@ def test_execute_leaves_the_callers_state_untouched(cuda):
     keys, wr = gen.interleave(*_ycsb("C", 640, 300, 1))
     c = make(cfg, C, 0, device=cuda)
     before = t_types.state_to_numpy(c.state)
-    r = execute(c, keys, plan=None)
+    r = execute(c, keys, plan=None, exec_cfg=_keep(cfg))
     after = t_types.state_to_numpy(c.state)
     for f in before:
         assert np.array_equal(before[f], after[f]), f
     assert int(r.stats.gets) == int((keys != 0).sum())
-    again = execute(c, keys, plan=None)
+    again = execute(c, keys, plan=None, exec_cfg=_keep(cfg))
     assert np.array_equal(r.hits, again.hits)
 
 
@@ -611,10 +619,11 @@ def test_a_later_run_replays_the_captured_step(cuda):
     short = keys.shape[0] // 2
     c = make(cfg, C, 0, device=cuda)
     ops.reset_launches()
-    r1 = execute(c, keys, plan=None, is_write=wr)
+    r1 = execute(c, keys, plan=None, exec_cfg=_keep(cfg), is_write=wr)
     first = ops.launches()
     ops.reset_launches()
-    r2 = execute(c, keys[:short], plan=None, is_write=wr[:short])
+    r2 = execute(c, keys[:short], plan=None, exec_cfg=_keep(cfg),
+                 is_write=wr[:short])
     assert first == {k: (keys.shape[0] + 1) * CACHE_KERNELS.get(k, 0)
                      for k in first}
     assert ops.launches() == {k: short * CACHE_KERNELS.get(k, 0)
@@ -653,6 +662,168 @@ def test_a_shape_is_captured_once_and_its_call_marks_the_copies(cuda):
                      "ditto.readback"]
 
 
+LANE4 = ExecConfig(batch=4, plan="lane")
+
+
+def _chain(cache, xc, parts) -> list:
+    """``execute()`` each (keys, is_write) of ``parts`` in turn, each on
+    the handle the last call returned: the results."""
+    out = []
+    for keys, wr in parts:
+        out.append(execute(cache, keys, exec_cfg=xc, is_write=wr))
+        cache = out[-1].cache
+    return out
+
+
+def _bit_equal(got, want):
+    """Two chains of results: every call's hits, ops and weights and the
+    last state, clients and counters, bit for bit."""
+    for a, b in zip(got, want, strict=True):
+        for x, y in ((a.hits, b.hits), (a.ops, b.ops),
+                     (a.weights, b.weights)):
+            assert x.tobytes() == y.tobytes()
+    a, b = got[-1], want[-1]
+    for part in ("state", "clients", "stats"):
+        for f, x, y in zip(getattr(a, part)._fields, getattr(a, part),
+                           getattr(b, part)):
+            assert _same_bits(x, y), (part, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one", "two", "remade", "remade_elsewhere",
+                                  "restored"])
+def test_donated_runs_are_bit_equal_to_copying_runs(cuda, case):
+    """Chains of donated calls (``ExecConfig.donate``, the card's
+    default) against copying ones: one cache; two caches called in turn;
+    a new ``make()`` after a donated cache is freed, made after the free
+    (the allocator may hand it the old addresses) or before it (new
+    addresses); and the old buffers refilled with a fresh state (the same
+    addresses: the captured graph replays with no new capture).  Every
+    result is bit-equal, and a freed table's graph is dropped."""
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, sync_period=4,
+                      experts=("lru", "lfu", "hyperbolic"), fc_threshold=13)
+    keys, wr = gen.interleave(*_ycsb("A", 2400, 400, 9))
+    parts = [(keys[i], wr[i]) for i in np.array_split(
+        np.arange(keys.shape[0]), 3)]
+    copy, give = (dataclasses.replace(LANE4, donate=d) for d in (False, True))
+    want = [_chain(make(cfg, C, s, device=cuda), copy, parts) for s in (0, 1)]
+    n0 = spans.counters()
+    if case == "one":
+        _bit_equal(_chain(make(cfg, C, 0, device=cuda), give, parts), want[0])
+    elif case == "two":
+        runs = [[], []]
+        handles = [make(cfg, C, s, device=cuda) for s in (0, 1)]
+        for p in parts:
+            for i in (0, 1):
+                runs[i] += _chain(handles[i], give, [p])
+                handles[i] = runs[i][-1].cache
+        assert handles[0].state.values.data_ptr() \
+            != handles[1].state.values.data_ptr()
+        _bit_equal(runs[0], want[0])
+        _bit_equal(runs[1], want[1])
+    else:
+        first = _chain(make(cfg, C, 0, device=cuda), give, parts)
+        _bit_equal(first, want[0])
+        graphs = len(t_cache._GRAPHS)
+        if case == "restored":
+            fresh = make(cfg, C, 1, device=cuda)
+            old = first[-1].cache
+            for dst, src in zip(old.state, fresh.state):
+                dst.copy_(src)
+            start = old._replace(clients=fresh.clients, stats=fresh.stats)
+            del fresh
+        elif case == "remade":
+            del first
+            start = make(cfg, C, 1, device=cuda)
+        else:
+            start = make(cfg, C, 1, device=cuda)
+            del first
+        captures = spans.counters()["graph_captures"]
+        _bit_equal(_chain(start, give, parts), want[1])
+        assert len(t_cache._GRAPHS) == graphs
+        if case == "restored":
+            assert spans.counters()["graph_captures"] == captures
+    assert spans.counters()["donated_scans"] - n0["donated_scans"] == \
+        (3 if case == "one" else 6)
+
+
+@pytest.mark.cuda
+def test_a_donated_handle_is_captured_once_and_counted(cuda):
+    """``donated_scans`` counts every segment a donated call runs; the
+    second call on the returned handle replays the first call's graph
+    (no capture), and its table is the handle's own."""
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, fc_threshold=15)
+    keys, wr = gen.interleave(*_ycsb("A", 960, 300, 10))
+    xc = dataclasses.replace(LANE4, plan="adaptive")
+    c = make(cfg, C, 0, device=cuda)
+    n0 = spans.counters()
+    r1 = execute(c, keys, exec_cfg=xc, is_write=wr)
+    n1 = spans.counters()
+    r2 = execute(r1.cache, keys, exec_cfg=xc, is_write=wr)
+    n2 = spans.counters()
+    assert n1["donated_scans"] - n0["donated_scans"] == len(r1.windows)
+    assert n2["donated_scans"] - n1["donated_scans"] == len(r2.windows)
+    assert n1["graph_captures"] > n0["graph_captures"]
+    assert n2["graph_captures"] == n1["graph_captures"]
+    for f in t_cache.TABLE:
+        assert getattr(r2.state, f) is getattr(c.state, f), f
+
+
+@pytest.mark.cuda
+def test_a_donated_capture_leaves_the_table_as_it_was(cuda):
+    """Capturing a donated step warms it up on padded lanes over the
+    caller's own table: no request reaches it, so after the capture (and
+    before any replay) the table and the caller's other leaves are bit
+    for bit what they were."""
+    cfg = CacheConfig(n_buckets=64, assoc=4, capacity=96, fc_threshold=17,
+                      sync_period=4, experts=("lru", "lfu", "hyperbolic"))
+    keys, wr = gen.interleave(*_ycsb("A", 1280, 300, 11))
+    r = execute(make(cfg, C, 0, device=cuda), keys, exec_cfg=LANE4,
+                is_write=wr)
+    assert int(r.stats.evictions) > 0
+    gp = plan.pack_rows(keys, cfg.n_buckets, 4, is_write=wr)
+    xs = t_cache._trace_inputs(_t(gp.keys, cuda),
+                               torch.from_numpy(gp.is_write).to(cuda),
+                               _t(gp.sizes, cuda), None)
+    carry = t_cache._trace_carry(cfg, r.state, r.clients, cuda)
+    before = [t.clone() for t in t_cache._leaves(carry)]
+    n0 = spans.counters()["graph_captures"]
+    t_cache._captured_step(t_cache._group_step(cfg, False),
+                           ("test_donated_capture", cfg), carry, xs,
+                           donate=True)
+    torch.cuda.synchronize(cuda)
+    assert spans.counters()["graph_captures"] == n0 + 1
+    for i, (a, b) in enumerate(zip(before, t_cache._leaves(carry))):
+        assert _same_bits(a, b), i
+
+
+@pytest.mark.cuda
+def test_a_donated_call_holds_no_second_table(cuda):
+    """On a table of 524 MB (262,144 slots of 250 words), a donated
+    call's peak of allocated memory, its graph's capture included, stays
+    within a fifth of the state's bytes above what was allocated before
+    it; a copying call's peak holds at least a second state."""
+    cfg = CacheConfig(n_buckets=1 << 15, assoc=8, capacity=1 << 17,
+                      value_words=250, fc_threshold=19)
+    keys, wr = gen.interleave(*_ycsb("A", 4096, 1 << 18, 12))
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      make(cfg, C, 0, device=cuda).state)
+    peaks = {}
+    for donate in (True, False, True):
+        c = make(cfg, C, 0, device=cuda)
+        xc = dataclasses.replace(LANE4, donate=donate)
+        for _ in range(2):
+            torch.cuda.synchronize(cuda)
+            base = torch.cuda.memory_allocated(cuda)
+            torch.cuda.reset_peak_memory_stats(cuda)
+            c = execute(c, keys, exec_cfg=xc, is_write=wr).cache
+            peaks.setdefault(donate, []).append(
+                torch.cuda.max_memory_allocated(cuda) - base)
+        del c
+    assert max(peaks[True]) < 0.2 * state_bytes, (peaks, state_bytes)
+    assert min(peaks[False]) >= state_bytes, (peaks, state_bytes)
+
+
 @pytest.mark.cuda
 def test_the_captured_step_writes_the_table_in_place(cuda):
     """The captured grouped step runs the in-place step on the graph's
@@ -675,7 +846,7 @@ def test_the_captured_step_writes_the_table_in_place(cuda):
     with mock.patch.object(t_cache, "access_group_", spy):
         for _ in range(2):
             r = execute(make(cfg, C, 0, device=cuda), keys, plan=gp,
-                        is_write=wr)
+                        exec_cfg=_keep(cfg), is_write=wr)
             (cap,) = [t_cache._GRAPHS[k] for k in set(t_cache._GRAPHS) - had]
             ptrs.append([t.data_ptr() for t in cap.leaves])
             assert int(r.stats.evictions) > 0
@@ -761,8 +932,8 @@ def _on_card_and_cpu(cuda, cfg, keys, **kw):
         ops.reset_launches()
         r = execute(make(c, C, 0, device=dev), keys[:half], plan=gp,
                     is_write=wr[0], sizes=sz[0], tenants=tn[0])
-        r2 = execute(r.cache, keys[half:], plan=None, is_write=wr[1],
-                     sizes=sz[1], tenants=tn[1])
+        r2 = execute(r.cache, keys[half:], plan=None, exec_cfg=_keep(c),
+                     is_write=wr[1], sizes=sz[1], tenants=tn[1])
         runs[(str(dev), backend)] = (r, r2, ops.launches())
     return runs, gp
 
